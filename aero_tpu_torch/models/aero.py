@@ -1,0 +1,256 @@
+"""The AERO generator in PyTorch (port of ``aero_tpu/models/aero.py``).
+
+A complex-spectrogram U-Net for bandwidth extension: analysis STFT with the
+small hop/window, complex-as-channels, global mean/std normalisation, four
+frequency-strided encoders (FTB, conv, GroupNorm, GELU, DConv, 1x1 rewrite
+with GLU), a zeroed bottleneck, decoders over cat(x, skip) with
+frequency-axis transposed convs, de-normalisation and the synthesis iSTFT
+with the large hop/window. Spectra are ``[B, C, F, T]``.
+
+Dtype policy: STFT, normalisation, de-normalisation and iSTFT in float32;
+the U-Net in ``compute_dtype`` (float32 or bfloat16), with float32
+parameters cast per layer.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from aero_tpu_torch.models.modules import (
+    FTB, Conv2d, ConvTranspose2dFreq, DConv, GroupNorm, ScaledEmbedding,
+)
+from aero_tpu_torch.ops.spec import ispectro, spectro
+
+
+class HEncLayer(nn.Module):
+    """Encoder layer on the frequency axis (``aero.py:43-107``)."""
+
+    def __init__(self, chin: int, chout: int, kernel_size: int = 8,
+                 stride: int = 4, norm_groups: int = 1, freq: bool = True,
+                 dconv: bool = True, is_first: bool = False,
+                 freq_attn: bool = False, freq_dim=None, norm: bool = True,
+                 context: int = 0, dconv_kw=None, rewrite: bool = True):
+        super().__init__()
+        if not freq:
+            raise NotImplementedError("HEncLayer: time-axis layers "
+                                      "(freq_ends < depth) are not ported")
+        if stride == 1 and kernel_size % 2 == 0 and kernel_size > 1:
+            kernel_size -= 1
+        pad = (kernel_size - stride) // 2
+        self.pre_conv = Conv2d(chin, chout, 1) if is_first else None
+        if is_first:
+            chin = chout
+        self.freq_attn_block = (FTB(input_dim=freq_dim, in_channel=chin)
+                                if freq_attn else None)
+        self.conv = Conv2d(chin, chout, (kernel_size, 1), (stride, 1),
+                           (pad, 0))
+        self.norm1 = GroupNorm(norm_groups, chout) if norm else nn.Identity()
+        self.dconv = DConv(chout, **dict(dconv_kw or {})) if dconv else None
+        self.rewrite = None
+        if rewrite:
+            k = 1 + 2 * context
+            self.rewrite = Conv2d(chout, 2 * chout, k, 1, context)
+            self.norm2 = (GroupNorm(norm_groups, 2 * chout) if norm
+                          else nn.Identity())
+
+    def forward(self, x):
+        if self.pre_conv is not None:
+            x = self.pre_conv(x)
+        if self.freq_attn_block is not None:
+            x = self.freq_attn_block(x)
+        x = F.gelu(self.norm1(self.conv(x)))
+        if self.dconv is not None:
+            x = self.dconv(x)
+        if self.rewrite is not None:
+            x = F.glu(self.norm2(self.rewrite(x)), dim=1)
+        return x
+
+
+class HDecLayer(nn.Module):
+    """Decoder layer without DConv (``aero.py:110-176``): 3x3 rewrite over
+    cat(x, skip), GLU, transposed conv on the frequency axis, GroupNorm,
+    trim."""
+
+    def __init__(self, chin: int, chout: int, last: bool = False,
+                 kernel_size: int = 8, stride: int = 4, norm_groups: int = 1,
+                 freq: bool = True, norm: bool = True, context: int = 1,
+                 rewrite: bool = True):
+        super().__init__()
+        if not freq:
+            raise NotImplementedError("HDecLayer: time-axis layers "
+                                      "(freq_ends < depth) are not ported")
+        if stride == 1 and kernel_size % 2 == 0 and kernel_size > 1:
+            kernel_size -= 1
+        self.pad = (kernel_size - stride) // 2
+        self.last = last
+        self.rewrite = None
+        if rewrite:
+            self.rewrite = Conv2d(chin, 2 * chin, 1 + 2 * context, 1, context)
+            self.norm1 = (GroupNorm(norm_groups, 2 * chin) if norm
+                          else nn.Identity())
+        self.conv_tr = ConvTranspose2dFreq(chin, chout, kernel_size, stride)
+        self.norm2 = GroupNorm(norm_groups, chout) if norm else nn.Identity()
+
+    def forward(self, x, skip):
+        y = torch.cat([x, skip], dim=1)
+        if self.rewrite is not None:
+            y = F.glu(self.norm1(self.rewrite(y)), dim=1)
+        z = self.norm2(self.conv_tr(y))
+        if self.pad:
+            z = z[:, :, self.pad:-self.pad]
+        return z if self.last else F.gelu(z)
+
+
+class Aero(nn.Module):
+    """Audio super-resolution U-Net (``aero.py:179-407``); the keyword
+    arguments are the ``aero:`` block of an experiment config."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 audio_channels: int = 2, channels: int = 48, growth: int = 2,
+                 nfft: int = 512, hop_length: int = 64, end_iters: int = 0,
+                 cac: bool = True, rewrite: bool = True, hybrid: bool = False,
+                 hybrid_old: bool = False, freq_emb: float = 0.2,
+                 emb_scale: float = 10, emb_smooth: bool = True,
+                 kernel_size: int = 8, strides: tp.Sequence[int] = (4, 4, 2, 2),
+                 context: int = 1, context_enc: int = 0, freq_ends: int = 4,
+                 enc_freq_attn: int = 4, norm_starts: int = 2,
+                 norm_groups: int = 4, dconv_mode: int = 1,
+                 dconv_depth: int = 2, dconv_comp: int = 4,
+                 dconv_time_attn: int = 2, dconv_lstm: int = 2,
+                 dconv_init: float = 1e-3, rescale: float = 0.1,
+                 lr_sr: int = 4000, hr_sr: int = 16000,
+                 spec_upsample: bool = True, act_func: str = "snake",
+                 debug: bool = False, compute_dtype=torch.float32):
+        super().__init__()
+        if dconv_mode & 2:
+            raise NotImplementedError("Aero: decoder DConv (dconv_mode & 2) "
+                                      "is not ported")
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.channels, self.growth = channels, growth
+        self.nfft, self.hop_length, self.cac = nfft, hop_length, cac
+        self.rewrite_on = rewrite
+        self.freq_emb_weight = freq_emb
+        self.kernel_size, self.strides = kernel_size, tuple(strides)
+        self.context, self.context_enc = context, context_enc
+        self.freq_ends, self.enc_freq_attn = freq_ends, enc_freq_attn
+        self.norm_starts, self.norm_groups = norm_starts, norm_groups
+        self.dconv_mode, self.dconv_depth = dconv_mode, dconv_depth
+        self.dconv_comp, self.dconv_time_attn = dconv_comp, dconv_time_attn
+        self.dconv_lstm, self.dconv_init = dconv_lstm, dconv_init
+        self.lr_sr, self.hr_sr = lr_sr, hr_sr
+        self.spec_upsample, self.act_func = spec_upsample, act_func
+        self.compute_dtype = compute_dtype
+
+        plan = self._layer_plan()
+        self.encoder = nn.ModuleList()
+        self.decoder = nn.ModuleList()
+        for p in plan:
+            self.encoder.append(HEncLayer(
+                p["enc_chin"], p["chout"], dconv=bool(dconv_mode & 1),
+                context=context_enc, is_first=p["index"] == 0,
+                freq_attn=p["freq_attn"], freq_dim=p["freqs_in"], **p["kw"]))
+        for p in reversed(plan):
+            kw = {k: v for k, v in p["kw"].items() if k != "dconv_kw"}
+            self.decoder.append(HDecLayer(
+                2 * p["chout"], p["dec_chout"], last=p["index"] == 0,
+                context=context, **kw))
+        self.freq_emb = None
+        if freq_emb:
+            first = plan[0]
+            n_freqs = first["freqs_in"] // first["kw"]["stride"]
+            self.freq_emb = ScaledEmbedding(n_freqs, first["chout"],
+                                            smooth=emb_smooth, scale=emb_scale)
+
+    @property
+    def scale(self):
+        return self.hr_sr / self.lr_sr if self.spec_upsample else 1
+
+    @property
+    def true_hop_length(self):
+        return int(self.hop_length // self.scale)
+
+    @property
+    def win_length(self):
+        return int(self.nfft // self.scale)
+
+    def _layer_plan(self):
+        """The reference constructor loop (``aero.py:239-287``)."""
+        plan = []
+        chin_z = self.in_channels * (2 if self.cac else 1)
+        chout_z = self.channels
+        freqs = self.nfft // 2
+        for index, stri in enumerate(self.strides):
+            freq = index <= self.freq_ends
+            ker = self.kernel_size
+            if freq and freqs < self.kernel_size:
+                ker = freqs
+            kw = dict(
+                kernel_size=ker, stride=stri, freq=freq,
+                norm=index >= self.norm_starts, rewrite=self.rewrite_on,
+                norm_groups=self.norm_groups,
+                dconv_kw=dict(
+                    lstm=index >= self.dconv_lstm,
+                    time_attn=index >= self.dconv_time_attn,
+                    depth=self.dconv_depth, compress=self.dconv_comp,
+                    init_value=self.dconv_init, act_func=self.act_func,
+                    freq_dim=freqs // stri if freq else freqs))
+            dec_chout = chin_z
+            if index == 0:
+                dec_chout = self.out_channels * (2 if self.cac else 1)
+            plan.append(dict(index=index, enc_chin=chin_z, chout=chout_z,
+                             dec_chout=dec_chout, freqs_in=freqs, kw=kw,
+                             freq_attn=index >= self.enc_freq_attn))
+            chin_z = chout_z
+            chout_z = int(self.growth * chout_z)
+            if freq:
+                freqs //= stri
+        return plan
+
+    def _spec(self, x):
+        hl = self.true_hop_length
+        if x.shape[-1] % hl:
+            x = F.pad(x, (0, hl - x.shape[-1] % hl))
+        return spectro(x, self.nfft, hl, win_length=self.win_length)[..., :-1, :]
+
+    def _ispec(self, z):
+        hl = int(self.true_hop_length * self.scale)
+        win_length = int(self.win_length * self.scale)
+        z = torch.cat([z, torch.zeros_like(z[..., :1, :])], dim=-2)
+        return ispectro(z, hl, win_length=win_length)
+
+    def forward(self, mix):
+        """mix: [B, C_in, T] or [B, T] float -> [B, C_out, T * scale] float32."""
+        if mix.dim() == 2:
+            mix = mix[:, None, :]
+        length = mix.shape[-1]
+        z = self._spec(mix)                                   # [B, C, F, T]
+        b, c, f, t = z.shape
+        # complex as channels, ordered (c0_re, c0_im, c1_re, ...)
+        x = torch.view_as_real(z).permute(0, 1, 4, 2, 3).reshape(b, 2 * c, f, t)
+        mean = x.mean(dim=(1, 2, 3), keepdim=True)
+        std = x.std(dim=(1, 2, 3), keepdim=True)              # unbiased
+        x = ((x - mean) / (1e-5 + std)).to(self.compute_dtype)
+
+        saved = []
+        for index, enc in enumerate(self.encoder):
+            x = enc(x)
+            if index == 0 and self.freq_emb is not None:
+                frs = torch.arange(x.shape[2], device=x.device)
+                emb = self.freq_emb(frs).t()[None, :, :, None].to(x.dtype)
+                x = x + self.freq_emb_weight * emb
+            saved.append(x)
+
+        x = torch.zeros_like(x)  # the signal flows through the skips
+        for dec in self.decoder:
+            x = dec(x, saved.pop(-1))
+
+        x = x.float() * std + mean
+        x = x.reshape(b, self.out_channels, 2, f, t).permute(0, 1, 3, 4, 2)
+        x_spec = torch.view_as_complex(x.contiguous())
+        out = self._ispec(x_spec)
+        return out[..., :int(length * self.scale)]
+
