@@ -11,6 +11,8 @@
 //   scores[t, s] = <k_t, q_s> - w_s * |t - s|     (q pre-scaled by 1/sqrt(C))
 //   scores[s, s] = -100                            (self-reference kill)
 //   out_s        = sum_t softmax_t(scores)[t, s] * v_t
+//   lse_s        = log sum_t exp(scores[t, s])     (only when asked for:
+//                                                   the backward needs it)
 //
 // What bounds it on this card: the T^2 (query, key) pairs. Each pair costs
 // 2*C FMAs (score and accumulate) and one exponential, against 4*C bytes of
@@ -19,39 +21,35 @@
 // by FMA and MUFU (exp) issue and by shared-memory reads, not by HBM.
 //
 // Design (simple and right first; tensor cores, TMA and wgmma come later):
-// - one block per (tile of kQueries queries, row); one thread per query,
+// - one block per (tile of kThreads queries, row); one thread per query,
 //   holding q_s and an f32 accumulator of C values in registers;
-// - keys stream through shared memory in tiles of kKeys, converted to f32
+// - keys stream through shared memory in tiles of kTile, converted to f32
 //   once per tile; every thread reads the same key, so the reads broadcast;
 // - online softmax in f32 per tile: scores of the tile into registers, one
 //   rescale of the running sum per tile, one exp per (query, key);
 // - keys t >= T are masked to -inf; queries s >= T compute and are not
 //   stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "local_attention.cuh"
 
 namespace {
 
-constexpr int kQueries = 128;  // queries per block, one per thread
-constexpr int kKeys = 64;      // keys per shared-memory tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+using aero::kThreads;
+using aero::kTile;
+using aero::store;
+using aero::to_f32;
 
 template <typename T, int C>
-__global__ void __launch_bounds__(kQueries)
+__global__ void __launch_bounds__(kThreads)
 local_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const float* __restrict__ w,
-                           T* __restrict__ out, int t_len) {
-  __shared__ __align__(16) float ks[kKeys * C];
-  __shared__ __align__(16) float vs[kKeys * C];
+                           T* __restrict__ out, float* __restrict__ lse,
+                           int t_len) {
+  __shared__ __align__(16) float ks[kTile * C];
+  __shared__ __align__(16) float vs[kTile * C];
 
   const int row = blockIdx.y;
-  const int s = blockIdx.x * kQueries + threadIdx.x;  // this thread's query
+  const int s = blockIdx.x * kThreads + threadIdx.x;  // this thread's query
   const bool live = s < t_len;
   const size_t base = static_cast<size_t>(row) * t_len * C;
 
@@ -67,21 +65,21 @@ local_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = -INFINITY;  // running max
   float l = 0.f;        // running sum of exp(score - m)
 
-  for (int t0 = 0; t0 < t_len; t0 += kKeys) {
-    const int n_valid = min(kKeys, t_len - t0) * C;
+  for (int t0 = 0; t0 < t_len; t0 += kTile) {
+    const int n_valid = min(kTile, t_len - t0) * C;
     const size_t tile = base + static_cast<size_t>(t0) * C;
     __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kKeys * C; i += kQueries) {
+    for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
       const bool in = i < n_valid;
       ks[i] = in ? to_f32(k[tile + i]) : 0.f;
       vs[i] = in ? to_f32(v[tile + i]) : 0.f;
     }
     __syncthreads();
 
-    float sc[kKeys];
+    float sc[kTile];
     float tile_max = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
+    for (int j = 0; j < kTile; ++j) {
       const int t = t0 + j;
       float d = 0.f;
 #pragma unroll
@@ -100,7 +98,7 @@ local_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[c] *= alpha;
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
+    for (int j = 0; j < kTile; ++j) {
       const float p = __expf(sc[j] - m_new);
       l += p;
 #pragma unroll
@@ -114,13 +112,15 @@ local_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* o = out + base + static_cast<size_t>(s) * C;
 #pragma unroll
     for (int c = 0; c < C; ++c) store(o + c, acc[c] * inv);
+    if (lse != nullptr) lse[static_cast<size_t>(row) * t_len + s] = m + logf(l);
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* w,
-                   void* out, int rows, int t_len, int c, cudaStream_t stream) {
-  const dim3 grid((t_len + kQueries - 1) / kQueries, rows);
+                   void* out, float* lse, int rows, int t_len, int c,
+                   cudaStream_t stream) {
+  const dim3 grid((t_len + kThreads - 1) / kThreads, rows);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -128,16 +128,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* w,
   switch (c) {
 #define AERO_WIDTH(C)                                                        \
   case C:                                                                    \
-    local_attention_fwd_kernel<T, C><<<grid, kQueries, 0, stream>>>(         \
-        qt, kt, vt, w, ot, t_len);                                           \
+    local_attention_fwd_kernel<T, C><<<grid, kThreads, 0, stream>>>(         \
+        qt, kt, vt, w, ot, lse, t_len);                                      \
     break;
-    AERO_WIDTH(2)
-    AERO_WIDTH(4)
-    AERO_WIDTH(8)
-    AERO_WIDTH(12)
-    AERO_WIDTH(16)
-    AERO_WIDTH(24)
-    AERO_WIDTH(32)
+    AERO_FOR_EACH_WIDTH(AERO_WIDTH)
 #undef AERO_WIDTH
     default:
       return cudaErrorInvalidValue;
@@ -148,19 +142,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* w,
 }  // namespace
 
 // q, k, v, out: contiguous [rows, t_len, c] of dtype (0 = float32,
-// 1 = bfloat16); w: contiguous float32 [rows, t_len]. Launches on `stream`,
-// allocates nothing and does not synchronize. Returns the launch's
-// cudaError_t (0 on success).
+// 1 = bfloat16); w: contiguous float32 [rows, t_len]; lse: null, or
+// float32 [rows, t_len] that receives each query's log-sum-exp of scores.
+// Launches on `stream`, allocates nothing and does not synchronize.
+// Returns the launch's cudaError_t (0 on success).
 extern "C" int aero_local_attention_fwd(const void* q, const void* k,
                                         const void* v, const void* w,
-                                        void* out, int rows, int t_len, int c,
-                                        int dtype, void* stream) {
+                                        void* out, void* lse, int rows,
+                                        int t_len, int c, int dtype,
+                                        void* stream) {
   if (rows <= 0 || rows > 65535 || t_len <= 0) return cudaErrorInvalidValue;
   const float* wf = static_cast<const float*>(w);
+  float* lf = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, wf, out, rows, t_len, c, st);
+  if (dtype == 0) return launch<float>(q, k, v, wf, out, lf, rows, t_len, c, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, wf, out, rows, t_len, c, st);
+    return launch<__nv_bfloat16>(q, k, v, wf, out, lf, rows, t_len, c, st);
   return cudaErrorInvalidValue;
 }
 

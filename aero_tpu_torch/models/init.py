@@ -1,4 +1,5 @@
-"""Seeded initialisation of the port's Aero (port of ``aero_tpu/models/init.py``).
+"""Seeded initialisation of the port's Aero and MelGAN discriminator (port of
+``aero_tpu/models/init.py`` and the inits of ``aero_tpu/models/discriminators.py``).
 
 Every draw goes through one explicit ``torch.Generator``, so a seed gives the
 same weights on any device. The distributions are PyTorch's defaults, as the
@@ -14,7 +15,10 @@ JAX package reproduces them:
   by sqrt(row + 1) when ``smooth``, then divided by ``scale``;
 - LocalState ``query_decay``: weight times 0.01, bias -2;
 - then the Aero rescale: every Conv1d weight and bias divided by
-  sqrt(std(weight) / reference) (``init.py:96``, ``train/build.py:45-47``).
+  sqrt(std(weight) / reference) (``init.py:96``, ``train/build.py:45-47``);
+- MelGAN's weight-normed convs: ``v`` and the bias as a Conv above (fan_in
+  in/groups * kernel), ``g = ||v||`` per output channel, so that the
+  initial weight is ``v`` (``discriminators.py:87-127``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import math
 import torch
 from torch import nn
 
+from aero_tpu_torch.models import discriminators as D
 from aero_tpu_torch.models import modules as M
 
 
@@ -72,4 +77,19 @@ def init_aero_(model: nn.Module, generator: torch.Generator,
                 module.weight.div_(scale)
                 if module.bias is not None:
                     module.bias.div_(scale)
+    return model
+
+
+@torch.no_grad()
+def init_melgan_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise every weight-normed conv of ``model`` in place from
+    ``generator``; returns it."""
+    for module in model.modules():
+        if isinstance(module, D.WNConv1d):
+            v = module.weight_v
+            bound = 1.0 / math.sqrt(v[0].numel())
+            v.uniform_(-bound, bound, generator=generator)
+            module.bias.uniform_(-bound, bound, generator=generator)
+            module.weight_g.copy_(v.pow(2).sum(dim=(1, 2), keepdim=True)
+                                  .sqrt())
     return model

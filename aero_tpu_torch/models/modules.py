@@ -5,7 +5,7 @@ Layouts follow PyTorch's habit: spectra ``[B, C, F, T]``, 1-D signals
 dtype of its input (float32, or bfloat16 inside the U-Net) and casts its
 weights to it. Normalisation statistics, the LSTM recurrence and the
 attention softmax stay in float32. Submodule names reproduce the reference
-state_dict keys that ``aero_tpu.train.torch_import.export_aero_state`` emits.
+state_dict keys that ``train.from_jax.export_aero_state`` emits.
 """
 
 from __future__ import annotations
@@ -70,12 +70,23 @@ class GroupNorm(nn.GroupNorm):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 with running statistics, eps 1e-5.
+    """BatchNorm over dim 1, eps 1e-5 (``modules.py:590-637``).
 
     Holds weight/bias and running_mean/running_var (no num_batches_tracked
     buffer: the exported state_dicts carry none). The affine is folded in
-    float32 and applied in the input's dtype (``modules.py:590-637``).
+    float32 and applied in the input's dtype.
+
+    In eval mode it normalises with the running statistics. In train mode
+    it normalises with the batch's (float32 mean and biased variance) and
+    leaves the running statistics alone: it keeps the batch's mean and
+    unbiased variance in ``batch_stats`` for the trainer, which folds the
+    mean over a step's microbatches in with ``update_running_stats``. So K
+    microbatches give ``0.9 * old + 0.1 * mean_k(batch_k)``, as the JAX
+    step's averaged updates do, where an update per forward would give
+    ``0.9**K * old + ...``.
     """
+
+    MOMENTUM = 0.1
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -84,13 +95,30 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.batch_stats = None  # (mean, unbiased var) of the last batch
 
     def forward(self, x):
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        shift = self.bias - self.running_mean * inv
         shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            axes = [0] + list(range(2, x.dim()))
+            xf = x.float()
+            mean = xf.mean(axes)
+            var = (xf * xf).mean(axes) - mean * mean
+            n = x.numel() // x.shape[1]
+            self.batch_stats = (mean.detach(),
+                                var.detach() * (n / max(n - 1, 1)))
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * inv
         return (x * inv.to(x.dtype).view(shape)
                 + shift.to(x.dtype).view(shape))
+
+    @torch.no_grad()
+    def update_running_stats(self, mean, var):
+        """running <- (1 - momentum) * running + momentum * (mean, var)."""
+        self.running_mean.lerp_(mean, self.MOMENTUM)
+        self.running_var.lerp_(var, self.MOMENTUM)
 
 
 class Snake(nn.Module):

@@ -23,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from aero_tpu.data import audio_io
+from aero_tpu_torch.data import audio_io
 from aero_tpu_torch.eval.forward import ChunkedInference, EvalForward
 from aero_tpu_torch.models.factory import build_generator
 from aero_tpu_torch.train.from_jax import load_reference_checkpoint
@@ -88,7 +88,7 @@ def predict_file(gen: torch.nn.Module, filename: str, output_dir: str,
 
 
 def main(argv=None) -> dict:
-    from aero_tpu.utils.config import load_config  # needs PyYAML
+    from aero_tpu_torch.utils.config import load_config  # needs PyYAML
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     args = load_config(str(CONF_DIR), "main_config",

@@ -90,7 +90,7 @@ def test_canonical_state_dict_layout_matches_export():
                                 abstract[coll])
              for coll in ("params", "batch_stats")}
     want = {k: tuple(v.shape) for k, v in export_aero_state(zeros).items()}
-    port = build_generator(CANONICAL_AERO_4_16)
+    port = build_generator(CANONICAL_AERO_4_16, device="cpu")
     got = {k: tuple(v.shape) for k, v in port.state_dict().items()}
     assert got == want
 
@@ -102,10 +102,11 @@ def test_canonical_config_equals_yaml():
 
 
 def test_seeded_init_is_deterministic_and_rescaled():
-    a = build_generator(TINY, seed=3).state_dict()
-    b = build_generator(TINY, seed=3).state_dict()
-    c = build_generator(TINY, seed=4).state_dict()
-    raw = build_generator(dict(TINY, rescale=0), seed=3).state_dict()
+    a = build_generator(TINY, device="cpu", seed=3).state_dict()
+    b = build_generator(TINY, device="cpu", seed=3).state_dict()
+    c = build_generator(TINY, device="cpu", seed=4).state_dict()
+    raw = build_generator(dict(TINY, rescale=0), device="cpu",
+                          seed=3).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["encoder.0.conv.weight"],
                            c["encoder.0.conv.weight"])
@@ -120,3 +121,25 @@ def test_seeded_init_is_deterministic_and_rescaled():
         for leaf in ("weight", "bias"):
             torch.testing.assert_close(a[f"{name}.{leaf}"],
                                        raw[f"{name}.{leaf}"] / scale)
+
+
+@pytest.mark.parametrize("config", [TINY, NARROW],
+                         ids=["tiny", "narrow_canonical"])
+def test_port_export_equals_aero_tpu_export(config):
+    """The port's own copy of the variable -> reference-key mapping gives
+    aero_tpu's keys, shapes and values, leaf for leaf."""
+    from aero_tpu_torch.train.from_jax import export_aero_state as port_export
+
+    jm = JaxAero(**_jax_kwargs(config))
+    abstract = jax.eval_shape(
+        lambda k: jm.init(k, jnp.zeros((1, 1, 4000)), train=False),
+        jax.random.PRNGKey(0))
+    rng = np.random.default_rng(1)
+    variables = {coll: jax.tree.map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32),
+        abstract[coll]) for coll in ("params", "batch_stats")}
+    want = export_aero_state(variables)
+    got = port_export(variables)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -1,11 +1,13 @@
 """The port's LocalState attention against aero_tpu's: the plain PyTorch
-version against the dense JAX reference and against the Pallas kernel in
-interpret mode, and the wrapper's CPU dispatch. The CUDA kernel itself is
-held against the plain version on the card by chip_smoke.py."""
+forward and backward against the dense JAX reference (and its VJP) and
+against the Pallas kernels in interpret mode, and the wrapper's CPU
+dispatch. The CUDA kernels themselves are held against the plain versions
+on the card by chip_smoke.py."""
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -78,3 +80,55 @@ def test_plain_bfloat16_close_to_float32():
     got = pattn.reference_attention(*(x.bfloat16() for x in xs))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=3e-2)
+
+
+def _grad_inputs(t, c, seed):
+    q, k, v, w = _inputs(t, c, seed=seed)
+    g = np.random.default_rng(seed + 100).standard_normal(q.shape).astype(
+        np.float32)
+    return (q, k, v, w), g
+
+
+def _jax_vjp(xs, g):
+    out, vjp = jax.vjp(jattn.reference_attention, *map(jnp.asarray, xs))
+    return np.array(out), [np.array(x) for x in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("c,t", CASES)
+def test_plain_backward_matches_jax_vjp(c, t):
+    xs, g = _grad_inputs(t, c, seed=10)
+    out, want = _jax_vjp(xs, g)
+    got = pattn.reference_attention_bwd(*_torch(*xs), torch.from_numpy(out),
+                                        torch.from_numpy(g), block_q=64)
+    for name, a, e in zip(("dq", "dk", "dv", "dw"), got, want):
+        assert a.shape == e.shape, name
+        # dw sums ds * |t - s| over up to T keys, so its scale grows with T
+        np.testing.assert_allclose(a.numpy(), e, err_msg=name,
+                                   atol=ATOL * max(1.0, np.abs(e).max()))
+
+
+@pytest.mark.parametrize("c,t", CASES)
+def test_autograd_through_plain_matches_jax_vjp(c, t):
+    xs, g = _grad_inputs(t, c, seed=20)
+    _, want = _jax_vjp(xs, g)
+    ts = [x.requires_grad_() for x in _torch(*xs)]
+    out = pattn.local_attention(*ts)  # CPU: the plain version, autograd
+    got = torch.autograd.grad(out, ts, torch.from_numpy(g))
+    for name, a, e in zip(("dq", "dk", "dv", "dw"), got, want):
+        np.testing.assert_allclose(a.numpy(), e, err_msg=name,
+                                   atol=ATOL * max(1.0, np.abs(e).max()))
+
+
+@pytest.mark.parametrize("c,t", CASES)
+def test_plain_backward_matches_pallas_bwd_interpret(c, t, interpret_mode):
+    xs, g = _grad_inputs(t, c, seed=30)
+    jxs = list(map(jnp.asarray, xs))
+    out = jattn.pallas_attention(*jxs)
+    want = [np.asarray(x) for x in jattn.pallas_attention_bwd(
+        *jxs, out, jnp.asarray(g))]
+    got = pattn.reference_attention_bwd(*_torch(*xs),
+                                        torch.from_numpy(np.asarray(out)),
+                                        torch.from_numpy(g))
+    for name, a, e in zip(("dq", "dk", "dv", "dw"), got, want):
+        np.testing.assert_allclose(a.numpy(), e, err_msg=name,
+                                   atol=ATOL * max(1.0, np.abs(e).max()))

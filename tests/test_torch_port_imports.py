@@ -1,6 +1,10 @@
-"""The port imports torch and never JAX, and chip_smoke.py refuses to run
-without a GPU. Both checks run in fresh interpreters."""
+"""The port imports torch and never JAX or the JAX package, and
+chip_smoke.py refuses to run without a GPU. The import checks read every
+source of the port statically (imports inside functions included) and
+import every module in a fresh interpreter."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -10,6 +14,36 @@ import pytest
 pytestmark = pytest.mark.torch_port
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PORT_SOURCES = sorted(
+    os.path.relpath(p, ROOT) for p in
+    glob.glob(os.path.join(ROOT, "aero_tpu_torch", "**", "*.py"),
+              recursive=True)) + ["chip_smoke.py"]
+FORBIDDEN = ("aero_tpu", "jax", "jaxlib", "flax")
+
+
+def _imported_modules(tree):
+    """Every module name an ``import`` or ``from ... import`` names, at any
+    depth of the tree; relative imports resolve inside the port."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield "." * node.level + (node.module or "")
+
+
+@pytest.mark.parametrize("source", PORT_SOURCES)
+def test_port_source_imports_nothing_of_jax_package(source):
+    with open(os.path.join(ROOT, source)) as f:
+        tree = ast.parse(f.read(), filename=source)
+    bad = sorted(name for name in _imported_modules(tree)
+                 if name.split(".")[0] in FORBIDDEN)
+    assert not bad, f"{source} imports {bad}"
+
+
+def test_static_import_check_sees_nested_imports():
+    tree = ast.parse("def f():\n    from aero_tpu.data import audio_io\n"
+                     "    import jax.numpy as jnp\n")
+    assert sorted(_imported_modules(tree)) == ["aero_tpu.data", "jax.numpy"]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys

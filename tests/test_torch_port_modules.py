@@ -135,3 +135,62 @@ def test_unfold_time_matches_jax():
     want = np.asarray(jm.unfold_time(jnp.asarray(x), 4, 2))  # [B, n, W, C]
     got = pm.unfold_time(torch.from_numpy(x).transpose(1, 2), 4, 2)
     np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(4, 5, 16, 30), (3, 6, 40)])
+def test_batchnorm_train_mode_matches_jax(shape):
+    """Batch statistics in float32 (biased variance to normalise), output
+    and gradient against _RawBatchNorm(train=True); the running statistics
+    after the port's update against JAX's (momentum 0.1, unbiased var)."""
+    x = (1.5 + np.random.default_rng(5).standard_normal(shape)).astype(
+        np.float32)
+    c = shape[1]
+    jmod = jm._RawBatchNorm()
+    v = _jax_vars(jmod, jnp.asarray(x), False, 1, seed=5)
+    v["params"] = perturb(v["params"], np.random.default_rng(6), ("bn",))
+    v["batch_stats"] = perturb(v["batch_stats"], np.random.default_rng(7),
+                               ("bn",))
+    g = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+
+    def jfwd(params, xx):
+        y, upd = jmod.apply({"params": params,
+                             "batch_stats": v["batch_stats"]}, xx, True, 1,
+                            mutable=["batch_stats"])
+        return jnp.sum(y * g), (y, upd)
+
+    (_, (want, upd)), want_grads = jax.value_and_grad(
+        jfwd, argnums=(0, 1), has_aux=True)(v["params"], jnp.asarray(x))
+    port = pm.BatchNorm(c)
+    port.load_state_dict({
+        "weight": torch.from_numpy(v["params"]["scale"]),
+        "bias": torch.from_numpy(v["params"]["bias"]),
+        "running_mean": torch.from_numpy(v["batch_stats"]["mean"]),
+        "running_var": torch.from_numpy(v["batch_stats"]["var"])})
+    port.train()
+    xt = torch.from_numpy(x).requires_grad_()
+    got = port(xt)
+    got_grads = torch.autograd.grad(got, (port.weight, port.bias, xt),
+                                    torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL)
+    for a, e in zip(got_grads, (want_grads[0]["scale"],
+                                want_grads[0]["bias"], want_grads[1])):
+        e = np.asarray(e)
+        np.testing.assert_allclose(a.numpy(), e,
+                                   atol=1e-5 * max(1, np.abs(e).max()))
+    port.update_running_stats(*port.batch_stats)
+    np.testing.assert_allclose(port.running_mean.numpy(),
+                               np.asarray(upd["batch_stats"]["mean"]),
+                               atol=1e-6)
+    np.testing.assert_allclose(port.running_var.numpy(),
+                               np.asarray(upd["batch_stats"]["var"]),
+                               atol=1e-6)
+    port.eval()  # the running statistics normalise again
+    with torch.no_grad():
+        y = port(xt)
+    mean, var = port.running_mean, port.running_var
+    ref = (xt - mean.view(1, -1, *[1] * (len(shape) - 2))) * torch.rsqrt(
+        var + 1e-5).view(1, -1, *[1] * (len(shape) - 2))
+    ref = ref * port.weight.view(1, -1, *[1] * (len(shape) - 2)) \
+        + port.bias.view(1, -1, *[1] * (len(shape) - 2))
+    np.testing.assert_allclose(y.numpy(), ref.detach().numpy(), atol=ATOL)
