@@ -5,22 +5,23 @@
 // batch * heads); the per-query decay w, the log-sum-exp and the
 // backward's D = <out, grad_out> are contiguous float32 [rows, T].
 // Arithmetic is float32 throughout.
+//
+// Band: with band W in [1, T), only keys with |t - s| <= W enter query s's
+// softmax (the JAX package's banded operator); the entry points map
+// W <= 0 or W >= T to T, where every key is in the band (exact attention).
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace aero {
 
 constexpr int kThreads = 128;  // queries (or keys) per block, one per thread
 constexpr int kTile = 64;      // keys (or queries) per shared-memory tile
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+inline int effective_band(int band, int t_len) {
+  return (band <= 0 || band > t_len) ? t_len : band;
+}
 
 }  // namespace aero
 

@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel _pallas_bwd_kernel of aero_tpu/ops/attention.py
 // (line 422, called through pallas_attention_bwd and the custom VJP
-// _fla_bwd). With p[t, s] the forward's softmax over keys t for query s,
+// _fla_bwd), and, with a band, the autodiff of banded_blockwise_attention
+// that the banded operator's VJP (_banded_bwd, line 618) runs. With p[t, s]
+// the forward's softmax over keys t for query s,
 // recomputed from the forward's log-sum-exp as exp(score[t, s] - lse_s),
 // g the gradient of out and D_s = <out_s, g_s>:
 //
@@ -12,6 +14,10 @@
 //   dq_s  = sum_t ds[t, s] * k_t
 //   dk_t  = sum_s ds[t, s] * q_s
 //   dw_s  = -sum_t ds[t, s] * |t - s|
+//
+// With a band W, p[t, s] = 0 where |t - s| > W, so (a) visits only the
+// keys [s_lo - W, s_hi + W] of its block's queries and (b) only the
+// queries [t_lo - W, t_hi + W] of its block's keys.
 //
 // What bounds it on this card: as in the forward, the T^2 pairs. Each pair
 // costs 3*C FMAs in the query-major pass and 4*C in the key-major pass,
@@ -47,7 +53,7 @@ local_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ g,
                               const float* __restrict__ lse,
                               float* __restrict__ delta, T* __restrict__ dq,
-                              float* __restrict__ dw, int t_len) {
+                              float* __restrict__ dw, int t_len, int band) {
   __shared__ __align__(16) float ks[kTile * C];
   __shared__ __align__(16) float vs[kTile * C];
 
@@ -73,10 +79,14 @@ local_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float ls = live ? lse[ridx] : 0.f;
   if (live) delta[ridx] = d_s;
   const float sf = static_cast<float>(s);
+  const float bandf = static_cast<float>(band);
   float dw_s = 0.f;
+  const int q_lo = blockIdx.x * kThreads;
+  const int k_lo = max(0, q_lo - band);
+  const int k_end = min(t_len, min(q_lo + kThreads, t_len) + band);
 
-  for (int t0 = 0; t0 < t_len; t0 += kTile) {
-    const int n_valid = min(kTile, t_len - t0) * C;
+  for (int t0 = k_lo; t0 < k_end; t0 += kTile) {
+    const int n_valid = min(kTile, k_end - t0) * C;
     const size_t tile = base + static_cast<size_t>(t0) * C;
     __syncthreads();  // the previous tile is consumed
     for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
@@ -98,8 +108,8 @@ local_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       const float dist = fabsf(static_cast<float>(t) - sf);
       sc = fmaf(-ws, dist, sc);
-      // the diagonal and the keys past T contribute no ds
-      const float p = (t != s && t < t_len) ? __expf(sc - ls) : 0.f;
+      // the diagonal, the keys out of the band and past T contribute no ds
+      const float p = (t != s && t < k_end && dist <= bandf) ? __expf(sc - ls) : 0.f;
       const float ds = p * (dp - d_s);
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[c] = fmaf(ds, ks[j * C + c], acc[c]);
@@ -123,7 +133,7 @@ local_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
                                T* __restrict__ dk, T* __restrict__ dv,
-                               int t_len) {
+                               int t_len, int band) {
   __shared__ __align__(16) float qs[kTile * C];
   __shared__ __align__(16) float gs[kTile * C];
   __shared__ float wsh[kTile];
@@ -149,9 +159,13 @@ local_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dv_t[c] = 0.f;
   }
   const float tf = static_cast<float>(t);
+  const float bandf = static_cast<float>(band);
+  const int k_lo = blockIdx.x * kThreads;
+  const int s_lo = max(0, k_lo - band);
+  const int s_end = min(t_len, min(k_lo + kThreads, t_len) + band);
 
-  for (int s0 = 0; s0 < t_len; s0 += kTile) {
-    const int n_live = min(kTile, t_len - s0);
+  for (int s0 = s_lo; s0 < s_end; s0 += kTile) {
+    const int n_live = min(kTile, s_end - s0);
     const size_t tile = base + static_cast<size_t>(s0) * C;
     __syncthreads();  // the previous tile is consumed
     for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
@@ -162,7 +176,7 @@ local_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       const bool in = i < n_live;
       wsh[i] = in ? w[rbase + s0 + i] : 0.f;
-      lsh[i] = in ? lse[rbase + s0 + i] : INFINITY;  // p = 0 past T
+      lsh[i] = in ? lse[rbase + s0 + i] : INFINITY;  // p = 0 past the range
       dsh[i] = in ? delta[rbase + s0 + i] : 0.f;
     }
     __syncthreads();
@@ -177,9 +191,10 @@ local_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sc = fmaf(kr[c], qs[j * C + c], sc);
         dp = fmaf(vr[c], gs[j * C + c], dp);
       }
-      sc = fmaf(-wsh[j], fabsf(tf - static_cast<float>(s)), sc);
+      const float dist = fabsf(tf - static_cast<float>(s));
+      sc = fmaf(-wsh[j], dist, sc);
       sc = (s == t) ? -100.f : sc;
-      const float p = __expf(sc - lsh[j]);
+      const float p = (dist <= bandf) ? __expf(sc - lsh[j]) : 0.f;
       const float ds = (s == t) ? 0.f : p * (dp - dsh[j]);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
@@ -202,7 +217,7 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* w,
                    const void* out, const void* g, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, float* dw,
-                   int rows, int t_len, int c, cudaStream_t stream) {
+                   int rows, int t_len, int c, int band, cudaStream_t stream) {
   const dim3 grid((t_len + kThreads - 1) / kThreads, rows);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -217,11 +232,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* w,
 #define AERO_WIDTH(C)                                                        \
   case C:                                                                    \
     local_attention_bwd_dq_kernel<T, C><<<grid, kThreads, 0, stream>>>(      \
-        qt, kt, vt, w, ot, gt, lse, delta, dqt, dw, t_len);                  \
+        qt, kt, vt, w, ot, gt, lse, delta, dqt, dw, t_len, band);            \
     err = cudaGetLastError();                                                \
     if (err != cudaSuccess) return err;                                      \
     local_attention_bwd_dkv_kernel<T, C><<<grid, kThreads, 0, stream>>>(     \
-        qt, kt, vt, w, gt, lse, delta, dkt, dvt, t_len);                     \
+        qt, kt, vt, w, gt, lse, delta, dkt, dvt, t_len, band);               \
     break;
     AERO_FOR_EACH_WIDTH(AERO_WIDTH)
 #undef AERO_WIDTH
@@ -235,7 +250,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* w,
 
 // q, k, v, out, g (the gradient of out), dq, dk, dv: contiguous
 // [rows, t_len, c] of dtype (0 = float32, 1 = bfloat16); w, lse (from the
-// forward), delta (scratch) and dw: contiguous float32 [rows, t_len].
+// forward), delta (scratch) and dw: contiguous float32 [rows, t_len];
+// band: 0 for exact attention, else the half-width W of the band (the
+// forward's lse must come from the same band).
 // Launches the query-major kernel, then the key-major kernel that reads
 // its delta, on `stream`; allocates nothing and does not synchronize.
 // Returns the first failing launch's cudaError_t (0 on success).
@@ -244,9 +261,10 @@ extern "C" int aero_local_attention_bwd(const void* q, const void* k,
                                         const void* out, const void* g,
                                         const void* lse, void* delta,
                                         void* dq, void* dk, void* dv, void* dw,
-                                        int rows, int t_len, int c, int dtype,
-                                        void* stream) {
+                                        int rows, int t_len, int c, int band,
+                                        int dtype, void* stream) {
   if (rows <= 0 || rows > 65535 || t_len <= 0) return cudaErrorInvalidValue;
+  const int bw = aero::effective_band(band, t_len);
   const float* wf = static_cast<const float*>(w);
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(delta);
@@ -254,9 +272,9 @@ extern "C" int aero_local_attention_bwd(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, wf, out, g, lf, df, dq, dk, dv, dwf, rows,
-                         t_len, c, st);
+                         t_len, c, bw, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, wf, out, g, lf, df, dq, dk, dv, dwf,
-                                 rows, t_len, c, st);
+                                 rows, t_len, c, bw, st);
   return cudaErrorInvalidValue;
 }

@@ -10,13 +10,16 @@ state_dict keys that ``train.from_jax.export_aero_state`` emits.
 
 from __future__ import annotations
 
+import logging
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aero_tpu_torch.ops import attention
+from aero_tpu_torch.ops import attention, ftb, lstm
+
+logger = logging.getLogger(__name__)
 
 
 def _cast(p, dtype):
@@ -107,12 +110,19 @@ class BatchNorm(nn.Module):
             n = x.numel() // x.shape[1]
             self.batch_stats = (mean.detach(),
                                 var.detach() * (n / max(n - 1, 1)))
+            inv = torch.rsqrt(var + self.eps) * self.weight
+            shift = self.bias - mean * inv
         else:
-            mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        shift = self.bias - mean * inv
+            inv, shift = self.fold()
         return (x * inv.to(x.dtype).view(shape)
                 + shift.to(x.dtype).view(shape))
+
+    def fold(self):
+        """The eval affine (scale, shift), float32 [C] each, with
+        ``x * scale + shift`` the normalised x (``fold_only=True`` of
+        ``aero_tpu/models/modules.py:599-611``)."""
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return inv, self.bias - self.running_mean * inv
 
     @torch.no_grad()
     def update_running_stats(self, mean, var):
@@ -163,10 +173,12 @@ class ScaledEmbedding(nn.Module):
 
 
 class FTB(nn.Module):
-    """Frequency transform block on [B, C, F, T] in its composed form
-    (``modules.py:1033-1100``): squeeze to ``r_channel`` maps, a k=9 conv
-    over time of the flattened [r*F] maps, gate x by it, mix frequencies
-    with ``freq_fc``, then a 1x1 conv over cat(gated, x)."""
+    """Frequency transform block on [B, C, F, T] (``modules.py:1033-1100``):
+    squeeze to ``r_channel`` maps, a k=9 conv over time of the flattened
+    [r*F] maps, gate x by it, mix frequencies with ``freq_fc``, then a 1x1
+    conv over cat(gated, x), BatchNorm and ReLU. In eval mode with
+    ``AERO_FTB_KERNEL=1`` the tail after the gate runs fused
+    (``ops.ftb.ftb_tail``) with the BatchNorm folded into the 1x1 conv."""
 
     def __init__(self, input_dim: int, in_channel: int, r_channel: int = 5):
         super().__init__()
@@ -185,9 +197,23 @@ class FTB(nn.Module):
         b, c, f, t = x.shape
         h = self.conv1(x).reshape(b, self.r_channel * f, t)  # r-major flatten
         h = self.conv1d(h)                                   # [B, C, T]
+        if not self.training and ftb.enabled():
+            return self._fused_tail(x, h)
         att = h[:, :, None, :] * x
         att = self.freq_fc(att.transpose(2, 3)).transpose(2, 3)
         return self.conv2(torch.cat([att, x], dim=1))
+
+    def _fused_tail(self, x, h):
+        """Fold conv2's BatchNorm into its weight halves and bias in float32
+        (``modules.py:1084-1091``), then the fused tail in x's dtype."""
+        conv, bn = self.conv2[0], self.conv2[1]
+        c = x.shape[1]
+        scale, shift = bn.fold()
+        k2 = conv.weight[:, :, 0, 0].float().t()            # [2C, C']
+        ka = (k2[:c] * scale[None]).to(x.dtype)
+        kb = (k2[c:] * scale[None]).to(x.dtype)
+        b2 = conv.bias.float() * scale + shift
+        return ftb.ftb_tail(x, h, ka, kb, self.freq_fc.weight, b2)
 
 
 class BLSTM(nn.Module):
@@ -195,7 +221,10 @@ class BLSTM(nn.Module):
     overlapped chunking (``MAX_STEPS`` frames at stride ``MAX_STEPS // 2``,
     ``modules.py:743-785``), a Linear back to ``dim`` and the skip, on
     [N, C, T]. The recurrence runs in float32 (cuDNN's LSTM on the card);
-    the Linear runs in the input's dtype.
+    the Linear runs in the input's dtype. In eval mode with
+    ``AERO_LSTM_KERNEL=1`` and a hidden width the kernel takes, each layer
+    is one input-projection matmul and ``ops.lstm.lstm_recurrence`` in the
+    input's dtype, on ``nn.LSTM``'s own parameters.
     """
 
     MAX_STEPS = 200
@@ -217,7 +246,12 @@ class BLSTM(nn.Module):
             h = frames.permute(0, 2, 3, 1).reshape(n * n_frames, width, c)
         else:
             h = x.transpose(1, 2)                   # [N, T, C]
-        h = self.linear(self.lstm(h.float())[0].to(x.dtype))
+        if (not self.training and lstm.enabled()
+                and lstm.takes_kernel(self.lstm.hidden_size)):
+            h = self._recurrence(h)
+        else:
+            h = self.lstm(h.float())[0].to(x.dtype)
+        h = self.linear(h)
         if framed:
             frames = h.reshape(n, n_frames, width, c)
             limit = stride // 2
@@ -226,6 +260,21 @@ class BLSTM(nn.Module):
             out.append(frames[:, n_frames - 1, limit:])
             h = torch.cat(out, dim=1)[:, :t]
         return x + h.transpose(1, 2)
+
+    def _recurrence(self, h):
+        """[N, T, C] -> [N, T, 2H] in h's dtype through the recurrence
+        kernel: per layer, x W_ih^T of both directions as one matmul into
+        [T, 8H, N] (the sequences innermost), then the recurrence, whose
+        [T, 2H, N] output is the next layer's input as it lies."""
+        seq = h.permute(1, 2, 0)                            # [T, C, N]
+        for k in range(self.lstm.num_layers):
+            w_ih, w_hh, b_ih, b_hh = (
+                torch.stack([getattr(self.lstm, f"{name}_l{k}{sfx}")
+                             for sfx in ("", "_reverse")])
+                for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+            xp = torch.matmul(w_ih.flatten(0, 1).to(h.dtype), seq)
+            seq = lstm.lstm_recurrence(xp, w_hh, (b_ih + b_hh).flatten())
+        return seq.permute(2, 0, 1)                         # [N, T, 2H]
 
 
 class LocalState(nn.Module):
@@ -266,7 +315,17 @@ class LocalState(nn.Module):
         decays = torch.arange(1, self.ndecay + 1, dtype=x.dtype,
                               device=x.device)
         decay_w = (decay_q * decays).sum(-1) / math.sqrt(self.ndecay)
-        result = attention.local_attention(queries, keys, content, decay_w)
+        # AERO_ATTN_BAND=W: banded attention where t > 2W, as the JAX
+        # package dispatches (modules.py:908-918), in training too
+        band = attention.band_from_env()
+        if band > 0 and t <= 2 * band:
+            logger.warning(
+                "AERO_ATTN_BAND=%d requested but attention site t=%d "
+                "nfreqs=%d runs EXACT (band needs t > 2*band and "
+                "nfreqs=0)", band, t, 0)
+            band = 0
+        result = attention.local_attention(queries, keys, content, decay_w,
+                                           band=band)
         result = result.reshape(n, t, c).transpose(1, 2)
         return x + self.proj(result)
 

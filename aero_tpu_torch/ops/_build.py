@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aero_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -24,6 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 build_log = ""  # nvcc/ptxas output of the build this process ran
+# the ``dtype`` argument of every entry point
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _nvcc() -> str:
@@ -91,11 +95,21 @@ def library() -> ctypes.CDLL:
         build_log = _build(path)
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.aero_local_attention_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    lib.aero_local_attention_fwd.restype = i32
-    lib.aero_local_attention_bwd.argtypes = [ptr] * 12 + [i32] * 4 + [ptr]
-    lib.aero_local_attention_bwd.restype = i32
+    for name, argtypes in (
+            ("aero_local_attention_fwd", [ptr] * 6 + [i32] * 5 + [ptr]),
+            ("aero_local_attention_bwd", [ptr] * 12 + [i32] * 5 + [ptr]),
+            ("aero_lstm_recurrence", [ptr] * 4 + [i32] * 4 + [ptr]),
+            ("aero_ftb_tail", [ptr] * 7 + [i32] * 7 + [ptr])):
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = i32
     lib.aero_cuda_error_string.argtypes = [i32]
     lib.aero_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def raise_on(err: int, lib, what: str) -> None:
+    """Raise if a launch returned a CUDA error (0 is success)."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.aero_cuda_error_string(err).decode()}")

@@ -15,28 +15,45 @@ D_s = <out_s, g_s> (``aero_tpu/ops/attention.py:422-470``):
     dq_s = sum_t ds[t, s] k_t,  dk_t = sum_s ds[t, s] q_s,
     dw_s = -sum_t ds[t, s] |t - s|
 
+With a band W > 0 (``AERO_ATTN_BAND``, ``aero_tpu/ops/attention.py:103``),
+keys with |t - s| > W leave the softmax (score -inf), and the gradient is
+that of the banded operator.
+
 Every public function takes the JAX package's layout: q/k/v ``[B, T, H, C']``
 and the per-query decay ``w`` ``[B, T, H]``; outputs match.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+from aero_tpu_torch.ops import _build
 
 # Head widths the CUDA kernels are instantiated for (csrc/local_attention.cuh).
 KERNEL_WIDTHS = (2, 4, 8, 12, 16, 24, 32)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _scores(qf, kf, wf, t_idx, s0, s1):
-    """f32 scores [B, H, T, S] of queries s0:s1 against every key, the
-    distances |t - s| [T, S] and the diagonal mask [T, S]."""
-    s_idx = t_idx[s0:s1]
-    scores = torch.einsum("bthc,bshc->bhts", kf, qf[:, s0:s1])
-    delta = (t_idx[:, None] - s_idx[None, :]).abs()
+def band_from_env() -> int:
+    """``AERO_ATTN_BAND`` (read at call time): the band's half-width, 0 for
+    exact attention."""
+    return int(os.environ.get("AERO_ATTN_BAND", "0") or 0)
+
+
+def _scores(qf, kf, wf, t_idx, s0, s1, band=0, lo=0, hi=None):
+    """f32 scores [B, H, K, S] of queries s0:s1 against the keys lo:hi, the
+    distances |t - s| [K, S] and the diagonal mask [K, S]; with a band,
+    -inf where |t - s| > band."""
+    s_idx, k_idx = t_idx[s0:s1], t_idx[lo:hi]
+    scores = torch.einsum("bthc,bshc->bhts", kf[:, lo:hi], qf[:, s0:s1])
+    delta = (k_idx[:, None] - s_idx[None, :]).abs()
     scores = scores - delta * wf[:, :, None, s0:s1]
-    diag = t_idx[:, None] == s_idx[None, :]
-    return scores.masked_fill(diag, -100.0), delta, diag
+    diag = k_idx[:, None] == s_idx[None, :]
+    scores = scores.masked_fill(diag, -100.0)
+    if band > 0:
+        scores = scores.masked_fill(delta > band, float("-inf"))
+    return scores, delta, diag
 
 
 def reference_attention(q, k, v, w, block_q: int = 256):
@@ -60,12 +77,35 @@ def reference_attention(q, k, v, w, block_q: int = 256):
     return torch.cat(outs, dim=1).to(v.dtype)
 
 
+def banded_reference_attention(q, k, v, w, band: int, block_q: int = 256):
+    """Plain PyTorch banded forward (``aero_tpu.ops.attention.
+    banded_reference_attention``): ``reference_attention`` with the keys
+    |t - s| > band left out of the softmax. Each block of ``block_q``
+    queries scores only the keys [s0 - band, s1 + band) it can see, so
+    peak memory is O(B*H*block_q*(block_q + 2*band)). Differentiable by
+    autograd; band >= T - 1 gives exact attention."""
+    t = q.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    wf = w.float().permute(0, 2, 1)  # [B, H, T]
+    t_idx = torch.arange(t, device=q.device, dtype=torch.float32)
+    outs = []
+    for s0 in range(0, t, block_q):
+        s1 = min(s0 + block_q, t)
+        lo, hi = max(0, s0 - band), min(t, s1 + band)
+        scores, _, _ = _scores(qf, kf, wf, t_idx, s0, s1, band, lo, hi)
+        p = torch.softmax(scores, dim=2).to(v.dtype).float()
+        outs.append(torch.einsum("bhts,bthc->bshc", p, vf[:, lo:hi]))
+    return torch.cat(outs, dim=1).to(v.dtype)
+
+
 @torch.no_grad()
-def reference_attention_bwd(q, k, v, w, out, g, block_q: int = 256):
+def reference_attention_bwd(q, k, v, w, out, g, block_q: int = 256,
+                            band: int = 0):
     """Plain PyTorch backward: the explicit formulas of the module
-    docstring over blocks of ``block_q`` queries, in float32. ``out`` is
-    the forward's output and ``g`` its gradient; returns (dq, dk, dv, dw)
-    in the dtypes of q, k, v and w."""
+    docstring over blocks of ``block_q`` queries, in float32, of the
+    banded operator when ``band`` > 0. ``out`` is the forward's output and
+    ``g`` its gradient; returns (dq, dk, dv, dw) in the dtypes of q, k, v
+    and w."""
     t = q.shape[1]
     qf, kf, vf, of, gf = (x.float() for x in (q, k, v, out, g))
     wf = w.float().permute(0, 2, 1)  # [B, H, T]
@@ -74,7 +114,7 @@ def reference_attention_bwd(q, k, v, w, out, g, block_q: int = 256):
     dqs, dws = [], []
     for s0 in range(0, t, block_q):
         s1 = min(s0 + block_q, t)
-        scores, delta, diag = _scores(qf, kf, wf, t_idx, s0, s1)
+        scores, delta, diag = _scores(qf, kf, wf, t_idx, s0, s1, band)
         p = torch.softmax(scores, dim=2)                   # [B, H, T, S]
         gb = gf[:, s0:s1]                                   # [B, S, H, C]
         dv += torch.einsum("bhts,bshc->bthc", p, gb)
@@ -101,7 +141,8 @@ def _check(q, k, v, w):
         raise ValueError(f"local_attention: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"w{tuple(w.shape)}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if (q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype
+            or v.dtype != q.dtype):
         raise TypeError(f"local_attention: q/k/v must share float32 or "
                         f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if c not in KERNEL_WIDTHS:
@@ -125,16 +166,9 @@ def _unfold(x, b, t, h, c):  # [B*H, T, C] -> [B, T, H, C] (a view)
     return x.view(b, h, t, c).permute(0, 2, 1, 3)
 
 
-def _raise_on(err, lib, what):
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.aero_cuda_error_string(err).decode()}")
-
-
-def _kernel_fwd(qf, kf, vf, wf, with_lse: bool):
-    """Launch the forward kernel on folded inputs; returns (out, lse)."""
-    from aero_tpu_torch.ops import _build
-
+def _kernel_fwd(qf, kf, vf, wf, with_lse: bool, band: int = 0):
+    """Launch the forward kernel on folded inputs (``band`` 0: exact);
+    returns (out, lse)."""
     lib = _build.library()
     rows, t, c = qf.shape
     out = torch.empty_like(qf)
@@ -144,17 +178,18 @@ def _kernel_fwd(qf, kf, vf, wf, with_lse: bool):
     err = lib.aero_local_attention_fwd(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), wf.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(), rows, t, c,
-        _DTYPE_CODES[qf.dtype], stream)
-    _raise_on(err, lib, "local_attention forward")
+        band, _build.DTYPE_CODES[qf.dtype], stream)
+    _build.raise_on(err, lib, "local_attention forward")
     local_attention.launches += 1
+    if band > 0:
+        local_attention.banded_launches += 1
     return out, lse
 
 
-def _kernel_bwd(qf, kf, vf, wf, of, lse, gf):
-    """Launch the two backward kernels on folded tensors; returns
-    (dq, dk, dv, dw) folded, dw in float32."""
-    from aero_tpu_torch.ops import _build
-
+def _kernel_bwd(qf, kf, vf, wf, of, lse, gf, band: int = 0):
+    """Launch the two backward kernels on folded tensors (``band`` as the
+    forward's that gave ``lse``); returns (dq, dk, dv, dw) folded, dw in
+    float32."""
     lib = _build.library()
     rows, t, c = qf.shape
     dq, dk, dv = (torch.empty_like(qf) for _ in range(3))
@@ -165,8 +200,8 @@ def _kernel_bwd(qf, kf, vf, wf, of, lse, gf):
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), wf.data_ptr(),
         of.data_ptr(), gf.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-        rows, t, c, _DTYPE_CODES[qf.dtype], stream)
-    _raise_on(err, lib, "local_attention backward")
+        rows, t, c, band, _build.DTYPE_CODES[qf.dtype], stream)
+    _build.raise_on(err, lib, "local_attention backward")
     local_attention.backward_launches += 2  # kernels (a) and (b)
     return dq, dk, dv, dw
 
@@ -175,13 +210,13 @@ class _LocalAttention(torch.autograd.Function):
     """The forward kernel with its log-sum-exp, and the backward kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, w):
+    def forward(ctx, q, k, v, w, band):
         b, t, h, c = q.shape
         qf, kf, vf = (_fold(x, b, t, h, c) for x in (q, k, v))
         wf = _fold_w(w, b, t, h)
-        out, lse = _kernel_fwd(qf, kf, vf, wf, with_lse=True)
+        out, lse = _kernel_fwd(qf, kf, vf, wf, with_lse=True, band=band)
         ctx.save_for_backward(qf, kf, vf, wf, out, lse)
-        ctx.shape, ctx.w_dtype = (b, t, h, c), w.dtype
+        ctx.shape, ctx.w_dtype, ctx.band = (b, t, h, c), w.dtype, band
         return _unfold(out, b, t, h, c)
 
     @staticmethod
@@ -189,30 +224,34 @@ class _LocalAttention(torch.autograd.Function):
         b, t, h, c = ctx.shape
         qf, kf, vf, wf, out, lse = ctx.saved_tensors
         gf = _fold(g.to(qf.dtype), b, t, h, c)
-        dq, dk, dv, dw = _kernel_bwd(qf, kf, vf, wf, out, lse, gf)
+        dq, dk, dv, dw = _kernel_bwd(qf, kf, vf, wf, out, lse, gf, ctx.band)
         dw = dw.view(b, h, t).permute(0, 2, 1).to(ctx.w_dtype)
         return (_unfold(dq, b, t, h, c), _unfold(dk, b, t, h, c),
-                _unfold(dv, b, t, h, c), dw)
+                _unfold(dv, b, t, h, c), dw, None)
 
 
-def local_attention(q, k, v, w):
-    """LocalState attention.
+def local_attention(q, k, v, w, band: int = 0):
+    """LocalState attention, exact (``band`` 0) or banded to |t - s| <=
+    ``band``.
 
     CPU tensors take the plain version (differentiable by autograd). CUDA
     tensors launch the hand-written kernels (``csrc/local_attention.cu``)
-    at every T: inputs that require a gradient go through
+    at every T and band: inputs that require a gradient go through
     ``_LocalAttention``, whose backward is ``csrc/local_attention_bwd.cu``.
     Anything the kernels do not take raises.
     """
     if all(x.device.type == "cpu" for x in (q, k, v, w)):
+        if band > 0:
+            return banded_reference_attention(q, k, v, w, band)
         return reference_attention(q, k, v, w)
     b, t, h, c = _check(q, k, v, w)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, w)):
-        return _LocalAttention.apply(q, k, v, w)
+        return _LocalAttention.apply(q, k, v, w, band)
     out, _ = _kernel_fwd(*(_fold(x, b, t, h, c) for x in (q, k, v)),
-                         _fold_w(w, b, t, h), with_lse=False)
+                         _fold_w(w, b, t, h), with_lse=False, band=band)
     return _unfold(out, b, t, h, c)
 
 
 local_attention.launches = 0           # forward kernel launches
+local_attention.banded_launches = 0    # ... of them with a band
 local_attention.backward_launches = 0  # backward kernel launches, 2 a call

@@ -6,26 +6,41 @@ Run from the repository root, on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure (so the exit code is not 0):
+Phases, each of which raises on failure (so the exit code is not 0) and
+prints its time:
 
 1. the card: its name and power limit from nvidia-smi; no CUDA -> fail;
 2. build the CUDA kernels from aero_tpu_torch/csrc with nvcc (sm_90a, one
-   nvcc per source, all at once) and print each kernel's registers and
-   spills;
+   nvcc per source, all at once) and print each kernel instance's
+   registers and spills;
 3. the LocalState attention forward kernel against its plain PyTorch
    version at head widths 12 and 24, T = 500 .. 6891, and at the serving
-   and train shapes; float32 (TF32 off) to atol 1e-3, bfloat16 to 3e-2;
+   and train shapes; float32 (TF32 off) to atol 1e-3, bfloat16 to 3e-2.
+   With a band W (16, 128, and W >= T - 1, which must equal the exact
+   kernel bit for bit) against ``banded_reference_attention`` at T = 501,
+   2501 and 4097 and at the serving shapes;
 4. the backward kernels through ``torch.autograd.grad`` of
    ``local_attention`` against ``reference_attention_bwd`` (dq, dk, dv, dw
    within tol * max|want|: 1e-4 in float32, 2e-2 in bfloat16) and the
    forward's log-sum-exp against ``logsumexp`` of the plain scores, at
-   T = 501 .. 4097 and at the train shapes;
-5. serving: the canonical aero_4-16_512_64 generator from the seeded init
+   T = 501 .. 4097 and at the train shapes, exact and with bands 16 and
+   128;
+5. the LSTM recurrence kernel against ``reference_lstm_recurrence`` at the
+   serving shapes (N 3328 / H 48, N 1664 / H 96, T 200), at H 8 and 72 and
+   at a ragged N, and the fused FTB tail kernel against its plain version
+   at the four encoder shapes (B 16, T 2501) and at a ragged T and C',
+   both in float32 and bfloat16 (tolerances LSTM_ATOL and FTB_TOL);
+6. serving: the canonical aero_4-16_512_64 generator from the seeded init
    in bfloat16, saved as a reference .th and loaded back as the CLI loads
    it: one forward at batch 16 x 10 s that must launch the forward kernel 4
    times, the kernel-vs-plain gap of the whole forward on one chunk in
-   float32 and bfloat16, and the predict CLI on a 35 s file;
-6. training: the canonical generator and MelGAN discriminator from the
+   float32 and bfloat16, and the predict CLI on a 35 s file. Then the same
+   generators with the opt-in switches (AERO_LSTM_KERNEL=1,
+   AERO_FTB_KERNEL=1, AERO_ATTN_BAND=128): one forward that must launch the
+   LSTM kernel 8 times, the FTB kernel 4 times and the banded attention 4
+   times, and the whole-forward gap against the three plain versions. The
+   realtime factor and per-layer times of both paths, side by side;
+7. training: the canonical generator and MelGAN discriminator from the
    seeded init. At batch 4, one step's losses, generator gradient and each
    LocalState gradient leaf with the kernels against the same step with
    the plain attention under autograd, in float32 and bfloat16. Then
@@ -34,11 +49,14 @@ Phases, each of which raises on failure (so the exit code is not 0):
    finite metrics, both networks' weights changed, the median step time
    of 5 after 2 warm-ups, throughput, peak memory, and a profiled step's
    top kernels and idle share;
-7. numbers: the realtime factor at batch 16 with a per-layer breakdown and
-   idle share of one forward; per attention call at the train and serving
-   shapes, the forward and backward kernels' times against their plain
-   versions, the library call (scaled_dot_product_attention with a float
-   bias) and the bound.
+8. numbers: per attention call at the train and serving shapes, the
+   forward and backward kernels' times against their plain versions, the
+   library call (scaled_dot_product_attention with a float bias) and the
+   bound; per call at the opt-in serving path's shapes, the banded
+   forward, the LSTM recurrence and the FTB tail against their plain
+   versions, their library yardsticks (SDPA with a banded bias; one
+   bidirectional cuDNN ``nn.LSTM`` layer, which includes the input
+   projection; none computes the FTB tail) and bounds.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and the result JSON.
@@ -46,6 +64,7 @@ and the result JSON.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -82,6 +101,23 @@ TRAIN_GRAD_GAP = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 TRAIN_ATTN_LEAF_GAP = {torch.float32: 1e-3, torch.bfloat16: 0.5}
 # H100 SXM peaks (data sheet, dense, at 700 W): bf16 tensor FLOP/s, HBM B/s
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+# The opt-in serving path: the JAX package's three switches
+BAND = 128
+OPT_IN = {"AERO_LSTM_KERNEL": "1", "AERO_FTB_KERNEL": "1",
+          "AERO_ATTN_BAND": str(BAND)}
+# LSTM recurrence at the serving shapes, (N, H) with T = 200: B*F*26 chunks
+LSTM_STEPS = 200
+LSTM_ENC2, LSTM_ENC3 = (BATCH * 8 * 26, 48), (BATCH * 4 * 26, 96)
+# max|kernel - plain| of h in [-1, 1]: float32 sums in another order over
+# 200 dependent steps; in bfloat16 h is rounded every step, so one rounding
+# that falls the other way (2^-8 near 1) travels on through the recurrence
+LSTM_ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# FTB tail at the serving shapes, [B, C, F, T] from enc0 to enc3
+FTB_SHAPES = ((BATCH, 48, 256, 2501), (BATCH, 48, 64, 2501),
+              (BATCH, 96, 16, 2501), (BATCH, 192, 8, 2501))
+# max|kernel - plain| <= tol * max|plain|: float32 2C-term sums in another
+# order; bfloat16 rounds the output once, so up to 2 ulps (2^-6 relative)
+FTB_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf")
 
 
@@ -102,13 +138,38 @@ def card() -> str:
     return smi
 
 
+@contextlib.contextmanager
+def phase(name):
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def switches(env):
+    """The process environment with ``env`` set, restored afterwards (the
+    port reads its switches at call time)."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def print_ptxas(build_log: str):
-    """One line per kernel instance (name<dtype, width>): registers, shared
-    memory and spills, from nvcc -Xptxas=-v."""
+    """One line per kernel instance (name<dtype, template width: the head
+    width C', H/8 or the output-channel tile): registers, shared memory
+    and spills, from nvcc -Xptxas=-v."""
     name, spill = "?", ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(local_attention_[a-z_]+_kernel)"
+            m = re.search(r"((?:local_attention|lstm_recurrence|ftb_tail)"
+                          r"[a-z_]*_kernel)"
                           r"I(f|13__nv_bfloat16)Li(\d+)E", line)
             name = (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'}, {m[3]}>"
                     if m else line.split("'")[1])
@@ -129,58 +190,72 @@ def attn_inputs(shape, dtype, seed):
     return [x.to(dtype).cuda() for x in (q, k, v, w)]
 
 
-def check_kernel(attention) -> float:
-    """Every case within its tolerance; returns the max error at the
-    serving and train paths' shapes (bfloat16)."""
-    cases = [((2, t, 2, c), dt) for dt in (torch.float32, torch.bfloat16)
-             for c in (12, 24) for t in (500, 2501, 3000, 4097, 6891)]
-    path_shapes = (ENC2, ENC3, TRAIN_ENC2, TRAIN_ENC3)
-    cases += [(s, torch.bfloat16) for s in path_shapes]
+def plain_attention(attention):
+    """The plain version of ``local_attention``, band included."""
+    def fn(q, k, v, w, band=0):
+        if band > 0:
+            return attention.banded_reference_attention(q, k, v, w, band)
+        return attention.reference_attention(q, k, v, w)
+    return fn
+
+
+def check_kernel(attention, cases, path_shapes) -> float:
+    """Each case (shape, dtype, band; band 0 is exact) within its
+    tolerance, a band W >= T - 1 bit for bit the exact kernel; returns the
+    max error at ``path_shapes`` (bfloat16)."""
     path_err = 0.0
-    for i, (shape, dtype) in enumerate(cases):
-        xs = attn_inputs(shape, dtype, seed=i)
-        got = attention.local_attention(*xs)
+    plain = plain_attention(attention)
+    for i, (shape, dtype, band) in enumerate(cases):
+        xs = attn_inputs(shape, dtype, seed=i + 100 * band)
+        got = attention.local_attention(*xs, band=band)
         torch.cuda.synchronize()
-        want = attention.reference_attention(*xs)
+        want = plain(*xs, band=band)
         err = (got.float() - want.float()).abs().max().item()
         tol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
-        log(f"  kernel vs plain {str(dtype)[6:]:8s} [B,T,H,C']={shape}: "
-            f"max abs err {err:.3e} (atol {tol:g})")
+        exact = ""
+        if band >= shape[1] - 1:
+            same = torch.equal(got, attention.local_attention(*xs))
+            exact = f"; equals the exact kernel: {same}"
+            if not same:
+                raise AssertionError(f"band {band} >= T - 1 differs from the "
+                                     f"exact kernel at {shape} {dtype}")
+        log(f"  kernel vs plain {str(dtype)[6:]:8s} [B,T,H,C']={shape} "
+            f"band {band}: max abs err {err:.3e} (atol {tol:g}){exact}")
         if not err <= tol:
             raise AssertionError(f"kernel disagrees with plain at {shape} "
-                                 f"{dtype}: {err} > {tol}")
+                                 f"{dtype} band {band}: {err} > {tol}")
         if shape in path_shapes:
             path_err = max(path_err, err)
     return path_err
 
 
-def check_backward(attention):
+def check_backward(attention, cases):
     """The backward through autograd against ``reference_attention_bwd``
     and the forward's log-sum-exp against ``logsumexp`` of the plain
-    scores, at every case: ``torch.autograd.grad`` of ``local_attention``
-    must launch the forward kernel once and both backward kernels, and
-    hold dq, dk, dv and dw. Returns (max abs error, max error / max|want|)
-    over the train shapes' gradients (bfloat16)."""
-    cases = [((2, t, 2, c), dt) for dt in (torch.float32, torch.bfloat16)
-             for c in (12, 24) for t in (501, 762, 1379, 2048, 2501, 4097)]
-    cases += [(TRAIN_ENC2, torch.bfloat16), (TRAIN_ENC3, torch.bfloat16)]
+    scores, at every case (shape, dtype, band): ``torch.autograd.grad`` of
+    ``local_attention`` must launch the forward kernel once and both
+    backward kernels, and hold dq, dk, dv and dw. Returns (max abs error,
+    max error / max|want|) over the train shapes' gradients (bfloat16)."""
     train_abs = train_rel = 0.0
     fn = attention.local_attention
-    for i, (shape, dtype) in enumerate(cases):
+    for i, (shape, dtype, band) in enumerate(cases):
         xs = [x.requires_grad_() for x in
-              attn_inputs(shape, dtype, seed=1000 + i)]
+              attn_inputs(shape, dtype, seed=1000 + i + 100 * band)]
         b, t, h, c = shape
         g = torch.randn(b, t, h, c, device="cuda").to(dtype)
-        before = (fn.launches, fn.backward_launches)
-        out = fn(*xs)
+        before = (fn.launches, fn.backward_launches, fn.banded_launches)
+        out = fn(*xs, band=band)
         got = torch.autograd.grad(out, xs, g)
         torch.cuda.synchronize()
-        launched = (fn.launches - before[0], fn.backward_launches - before[1])
-        if launched != (1, 2):
-            raise AssertionError(f"autograd at {shape} launched {launched} "
-                                 "forward and backward kernels, not (1, 2)")
+        launched = (fn.launches - before[0], fn.backward_launches - before[1],
+                    fn.banded_launches - before[2])
+        if launched != (1, 2, int(band > 0)):
+            raise AssertionError(f"autograd at {shape} band {band} launched "
+                                 f"{launched} forward, backward and banded "
+                                 "kernels")
         q, k, v, w = (x.detach() for x in xs)
-        want = attention.reference_attention_bwd(q, k, v, w, out.detach(), g)
+        want = attention.reference_attention_bwd(q, k, v, w, out.detach(), g,
+                                                 band=band)
         tol = BWD_TOL_F32 if dtype == torch.float32 else BWD_TOL_BF16
         errs = []
         for name, a, e in zip(("dq", "dk", "dv", "dw"), got, want):
@@ -196,17 +271,19 @@ def check_backward(attention):
                                      f"{err} > {tol} * {scale}")
         fold = [attention._fold(x, b, t, h, c) for x in (q, k, v)]
         _, lse = attention._kernel_fwd(*fold, attention._fold_w(w, b, t, h),
-                                       with_lse=True)
+                                       with_lse=True, band=band)
         with torch.no_grad():
             t_idx = torch.arange(t, device="cuda", dtype=torch.float32)
             scores = [attention._scores(
                 q.float(), k.float(), w.float().permute(0, 2, 1), t_idx,
-                s0, min(s0 + 256, t))[0] for s0 in range(0, t, 256)]
+                s0, min(s0 + 256, t), band)[0] for s0 in range(0, t, 256)]
             want_lse = torch.cat([sc.logsumexp(2) for sc in scores], dim=2)
         lse_err = (lse.view(b, h, t) - want_lse).abs().max().item()
         if not lse_err <= LSE_ATOL:
-            raise AssertionError(f"lse at {shape} {dtype}: {lse_err}")
-        log(f"  backward vs plain {str(dtype)[6:]:8s} [B,T,H,C']={shape}: "
+            raise AssertionError(f"lse at {shape} {dtype} band {band}: "
+                                 f"{lse_err}")
+        log(f"  backward vs plain {str(dtype)[6:]:8s} [B,T,H,C']={shape} "
+            f"band {band}: "
             + " ".join(f"{n} {e:.2e} ({r:.1e} of max)" for n, (e, r) in
                        zip(("dq", "dk", "dv", "dw"), errs))
             + f"; tol {tol:g} of max; lse {lse_err:.2e}")
@@ -216,14 +293,104 @@ def check_backward(attention):
     return train_abs, train_rel
 
 
-def forward_with(attention, attn_fn, fn, *args):
-    """``fn(*args)`` with LocalState's attention swapped for ``attn_fn``."""
-    kernel = attention.local_attention
-    attention.local_attention = attn_fn
+def lstm_inputs(n, hd, dtype, seed):
+    """xp [200, 8H, N] ~ 0.5 N(0, 1) in ``dtype``; W_hh [2, 4H, H] and the
+    bias [8H] uniform in +-1/sqrt(H) (nn.LSTM's init), float32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xp = 0.5 * torch.randn(LSTM_STEPS, 8 * hd, n, device="cuda", generator=g)
+    w = (2 * torch.rand(2, 4 * hd, hd, device="cuda", generator=g) - 1)
+    b = (2 * torch.rand(8 * hd, device="cuda", generator=g) - 1)
+    return xp.to(dtype), w / hd ** 0.5, b / hd ** 0.5
+
+
+def check_lstm(lstm) -> float:
+    """The recurrence kernel against the plain version at the serving
+    shapes, at H 8, 72 and 128 (in float32 W_hh too large for shared
+    memory) and at a ragged N (not a multiple of the 32-sequence tile);
+    returns the max error at the serving shapes (bfloat16)."""
+    path = (LSTM_ENC2, LSTM_ENC3)
+    cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
+             for s in path + ((512, 8), (320, 72), (256, 128), (1000, 48))]
+    path_err = 0.0
+    for i, ((n, hd), dtype) in enumerate(cases):
+        xp, w, b = lstm_inputs(n, hd, dtype, seed=300 + i)
+        got = lstm.lstm_recurrence(xp, w, b)
+        torch.cuda.synchronize()
+        want = lstm.reference_lstm_recurrence(xp, w, b)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = LSTM_ATOL[dtype]
+        log(f"  lstm kernel vs plain {str(dtype)[6:]:8s} N={n} H={hd} "
+            f"T={LSTM_STEPS}: max abs err {err:.3e} (atol {tol:g}), mean "
+            f"{(got.float() - want.float()).abs().mean().item():.2e}")
+        if got.shape != want.shape or not err <= tol:
+            raise AssertionError(f"lstm kernel disagrees with plain at N={n} "
+                                 f"H={hd} {dtype}: {err} > {tol}")
+        if (n, hd) in path and dtype == torch.bfloat16:
+            path_err = max(path_err, err)
+    return path_err
+
+
+def ftb_inputs(shape, dtype, seed):
+    """x [B, C, F, T] ~ 0.3 N(0, 1) and h [B, C, T] = relu(N(0, 1)) in
+    ``dtype``; Ka, Kb [C, C] ~ N(0, 1/C), W_freq [F, F] ~ N(0, 1/F) and
+    b2 [C] ~ 0.1 N(0, 1), float32."""
+    b, c, f, t = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(*size, device="cuda", generator=g)
+    x = (0.3 * randn(b, c, f, t)).to(dtype)
+    h = torch.relu(randn(b, c, t)).to(dtype)
+    return (x, h, randn(c, c) / c ** 0.5, randn(c, c) / c ** 0.5,
+            randn(f, f) / f ** 0.5, 0.1 * randn(c))
+
+
+def check_ftb(ftb) -> float:
+    """The fused tail kernel against the plain version at the encoder
+    shapes, at a ragged T with 24 channels (one output tile of 32, 8 of
+    them masked) and at 100 channels (two tiles of 64); returns the max
+    error at the encoder shapes (bfloat16)."""
+    cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
+             for s in FTB_SHAPES + ((3, 24, 40, 777), (2, 100, 12, 333))]
+    path_err = 0.0
+    for i, (shape, dtype) in enumerate(cases):
+        args = ftb_inputs(shape, dtype, seed=500 + i)
+        got = ftb.ftb_tail(*args)
+        torch.cuda.synchronize()
+        want = ftb.reference_ftb_tail(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = FTB_TOL[dtype]
+        log(f"  ftb kernel vs plain {str(dtype)[6:]:8s} [B,C,F,T]={shape}: "
+            f"max abs err {err:.3e} ({err / scale:.1e} of max; tol {tol:g})")
+        if got.shape != want.shape or not err <= tol * scale:
+            raise AssertionError(f"ftb kernel disagrees with plain at {shape} "
+                                 f"{dtype}: {err} > {tol} * {scale}")
+        if shape in FTB_SHAPES and dtype == torch.bfloat16:
+            path_err = max(path_err, err)
+        del args, got, want
+        torch.cuda.empty_cache()
+    return path_err
+
+
+def plain_swaps(attention, lstm, ftb):
+    """Each kernel wrapper of the serving path -> its plain version."""
+    return {(attention, "local_attention"): plain_attention(attention),
+            (lstm, "lstm_recurrence"): lstm.reference_lstm_recurrence,
+            (ftb, "ftb_tail"): ftb.reference_ftb_tail}
+
+
+def forward_with(swaps, fn, *args):
+    """``fn(*args)`` with each (module, name) of ``swaps`` set to its
+    value: the wrappers' plain versions."""
+    kept = {key: getattr(*key) for key in swaps}
+    for (module, name), value in swaps.items():
+        setattr(module, name, value)
     try:
         return fn(*args)
     finally:
-        attention.local_attention = kernel
+        for (module, name), value in kept.items():
+            setattr(module, name, value)
 
 
 def rel_l2(a, b) -> float:
@@ -289,9 +456,10 @@ def device_profile(fn, what, smi):
     return idle
 
 
-def profile_forward(gen, fwd, x, smi):
+def profile_forward(gen, fwd, x, smi, what):
     """Per-layer device time (CUDA events around modules) and the device's
-    busy share of one forward (torch.profiler)."""
+    busy share of one forward (torch.profiler); returns ({layer: ms},
+    idle share)."""
     from aero_tpu_torch.models import modules as M
 
     spans = {}
@@ -325,17 +493,66 @@ def profile_forward(gen, fwd, x, smi):
     wall = time.perf_counter() - t0
     for h in hooks:
         h.remove()
-    log(f"per-layer device time, one forward B={BATCH} bf16 "
+    log(f"per-layer device time, one {what} forward B={BATCH} bf16 "
         f"(wall {wall * 1e3:.1f} ms) [{smi}]:")
+    layers = {}
     for name, pairs in spans.items():
-        ms = sum(a.elapsed_time(b) for a, b in pairs)
-        log(f"  {name:28s} {ms:9.3f} ms  ({len(pairs)} calls)")
-    return device_profile(lambda: fwd(x), f"forward B={BATCH}", smi)
+        layers[name] = sum(a.elapsed_time(b) for a, b in pairs)
+        log(f"  {name:28s} {layers[name]:9.3f} ms  ({len(pairs)} calls)")
+    return layers, device_profile(lambda: fwd(x), f"{what} forward B={BATCH}",
+                                  smi)
 
 
-def serving(attention, smi):
-    """Phase 5 and the serving numbers; returns the forward kernel's
-    launches in the batch-16 forward."""
+def realtime_factor(fwd, x, smi, what) -> float:
+    """Median wall time of 5 forwards after a warm-up, host to host."""
+    fwd(x)
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fwd(x)
+        runs.append(time.perf_counter() - t0)
+    med = statistics.median(runs)
+    log(f"realtime factor, {what} path, B={BATCH} bf16 {SECONDS} s chunks: "
+        f"{BATCH * SECONDS / med:.1f}x (median of {len(runs)}: "
+        f"{med * 1e3:.1f} ms per batch, host to host; "
+        f"{', '.join(f'{r * 1e3:.1f}' for r in runs)}) [{smi}]")
+    return med
+
+
+def launch_counts(attention, lstm, ftb):
+    return {"attention": attention.local_attention.launches,
+            "banded": attention.local_attention.banded_launches,
+            "lstm": lstm.lstm_recurrence.launches,
+            "ftb": ftb.ftb_tail.launches}
+
+
+def zero_counts(attention, lstm, ftb):
+    attention.local_attention.launches = 0
+    attention.local_attention.banded_launches = 0
+    lstm.lstm_recurrence.launches = 0
+    ftb.ftb_tail.launches = 0
+
+
+def checked_forward(fwd, x, counted, want):
+    """One forward at batch 16 with the kernel counts set to 0 just before
+    and read just after; the output must be finite [16, 1, 160000] and
+    the counts ``want``."""
+    zero_counts(*counted)
+    y = fwd(x)
+    launches = launch_counts(*counted)
+    log(f"forward B={BATCH} x {SECONDS} s: out {y.shape}, kernel launches "
+        f"{launches}")
+    if y.shape != (BATCH, 1, SECONDS * HR_SR) or not np.isfinite(y).all():
+        raise AssertionError(f"bad output: {y.shape}, finite "
+                             f"{np.isfinite(y).all()}")
+    if launches != want:
+        raise AssertionError(f"expected kernel launches {want}, {launches}")
+    return y, launches
+
+
+def serving(attention, lstm, ftb, smi):
+    """Phase 6 and the serving numbers; returns the kernel launches of the
+    default and of the opt-in batch-16 forward."""
     from aero_tpu_torch import predict
     from aero_tpu_torch.eval.forward import EvalForward
     from aero_tpu_torch.models.factory import (
@@ -365,34 +582,41 @@ def serving(attention, smi):
             np.float32)
         fwd = EvalForward(gen, scale=HR_SR / LR_SR, lr_sr=LR_SR,
                           device="cuda")
-        attention.local_attention.launches = 0
-        y = fwd(x)
-        launches = attention.local_attention.launches
-        log(f"forward B={BATCH} x {SECONDS} s: out {y.shape}, "
-            f"attention kernel launches {launches}")
-        if y.shape != (BATCH, 1, SECONDS * HR_SR) or not np.isfinite(y).all():
-            raise AssertionError(f"bad output: {y.shape}, finite "
-                                 f"{np.isfinite(y).all()}")
-        if launches != 4:
-            raise AssertionError(f"expected 4 attention launches, {launches}")
-
-        chunk = x[:1]
-        gap_bf16 = rel_l2(fwd(chunk), forward_with(
-            attention, attention.reference_attention, fwd, chunk))
+        counted = (attention, lstm, ftb)
+        plain = plain_swaps(*counted)
         gen32 = build_generator(kwargs, "float32", "cuda")
         gen32.load_state_dict(state, strict=True)
         fwd32 = EvalForward(gen32, scale=HR_SR / LR_SR, lr_sr=LR_SR,
                             device="cuda")
-        y32 = fwd32(chunk)
-        gap_f32 = rel_l2(y32, forward_with(
-            attention, attention.reference_attention, fwd32, chunk))
-        gap_dtype = rel_l2(fwd(chunk), y32)
+        chunk = x[:1]
+
+        def gaps(what):
+            """Whole forward of one chunk, kernels against their plain
+            versions, in relative L2."""
+            gap_bf16 = rel_l2(fwd(chunk), forward_with(plain, fwd, chunk))
+            y32 = fwd32(chunk)
+            gap_f32 = rel_l2(y32, forward_with(plain, fwd32, chunk))
+            gap_dtype = rel_l2(fwd(chunk), y32)
+            log(f"one chunk, {what} path, kernels vs plain versions, "
+                f"relative L2: bf16 {gap_bf16:.3e} (< {GAP_BF16:g}), f32 "
+                f"{gap_f32:.3e} (< {GAP_F32:g}); bf16 vs f32 forward "
+                f"{gap_dtype:.3e}")
+            if not (gap_bf16 < GAP_BF16 and gap_f32 < GAP_F32):
+                raise AssertionError(f"{what} forward with kernels disagrees "
+                                     "with plain")
+
+        y, launches = checked_forward(fwd, x, counted, {
+            "attention": 4, "banded": 0, "lstm": 0, "ftb": 0})
+        gaps("default")
+        with switches(OPT_IN):
+            y_opt, opt_launches = checked_forward(fwd, x, counted, {
+                "attention": 4, "banded": 4, "lstm": 8, "ftb": 4})
+            gaps("opt-in (" + ", ".join(f"{k}={v}" for k, v in OPT_IN.items())
+                 + ")")
+        log(f"opt-in vs default forward B={BATCH}, relative L2: "
+            f"{rel_l2(y_opt, y):.3e} (the band and the bf16 recurrence "
+            "change the function)")
         del gen32, fwd32
-        log(f"one chunk, kernel vs plain attention, relative L2: "
-            f"bf16 {gap_bf16:.3e} (< {GAP_BF16:g}), f32 {gap_f32:.3e} "
-            f"(< {GAP_F32:g}); bf16 vs f32 forward {gap_dtype:.3e}")
-        if not (gap_bf16 < GAP_BF16 and gap_f32 < GAP_F32):
-            raise AssertionError("kernel forward disagrees with plain")
 
         wav = os.path.join(tmp, "chirp35.wav")
         n_in = write_test_wav(wav, 35)
@@ -405,18 +629,17 @@ def serving(attention, smi):
         if out["out_samples"] != 4 * n_in:
             raise AssertionError("predict output is not 4x the input")
 
-    fwd(x)
-    runs = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        fwd(x)
-        runs.append(time.perf_counter() - t0)
-    med = statistics.median(runs)
-    log(f"realtime factor B={BATCH} bf16 {SECONDS} s chunks: "
-        f"{BATCH * SECONDS / med:.1f}x (median of {len(runs)}: "
-        f"{med * 1e3:.1f} ms per batch, host to host) [{smi}]")
-    profile_forward(gen, fwd, x, smi)
-    return launches
+    realtime_factor(fwd, x, smi, "default")
+    with switches(OPT_IN):
+        realtime_factor(fwd, x, smi, "opt-in")
+    layers, idle = profile_forward(gen, fwd, x, smi, "default")
+    with switches(OPT_IN):
+        layers_opt, idle_opt = profile_forward(gen, fwd, x, smi, "opt-in")
+    log(f"per-layer device ms, default | opt-in (idle share {idle:.3f} | "
+        f"{idle_opt:.3f}) [{smi}]:")
+    for name in layers:
+        log(f"  {name:28s} {layers[name]:9.3f} | {layers_opt[name]:9.3f}")
+    return launches, opt_launches
 
 
 def train_setup(precision, batch):
@@ -459,7 +682,8 @@ def train_gaps(attention):
                        if n != "key.bias"]
         g_k, _, m_k, _ = step.grads(lr, hr)
         g_p, _, m_p, _ = forward_with(
-            attention, attention.reference_attention, step.grads, lr, hr)
+            {(attention, "local_attention"): plain_attention(attention)},
+            step.grads, lr, hr)
         loss_gap = max(abs(m_k[n] - m_p[n]) / abs(m_p[n]) for n in m_p)
         flat_k = torch.cat([g.flatten().float() for g in g_k])
         flat_p = torch.cat([g.flatten().float() for g in g_p])
@@ -541,6 +765,14 @@ def training(attention, smi):
     return launches
 
 
+def roof(flops, nbytes):
+    """(ms, 'bytes' or 'operations'): the larger of ``flops`` at the bf16
+    tensor peak and ``nbytes`` at the HBM bandwidth."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def bound(shape, backward: bool, with_lse: bool):
     """(ms, 'bytes' or 'operations'): the least time of one call in bf16:
     4 * C' FLOP per (query, key) pair forward, 8 * C' backward, against
@@ -554,16 +786,41 @@ def bound(shape, backward: bool, with_lse: bool):
         nbytes = 8 * tensor + 3 * vector
     else:         # q k v, w in; out (and lse) out
         nbytes = 4 * tensor + (2 if with_lse else 1) * vector
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return roof(flops, nbytes)
 
 
-def sdpa_call(q, k, v, w):
+def banded_bound(shape, band):
+    """The banded forward (no lse) in bf16: 4 * C' FLOP per (query, key)
+    pair inside the band, which this T and W give; q, k, v, w in, out."""
+    b, t, h, c = shape
+    s = np.arange(t)
+    pairs = int((np.minimum(t - 1, s + band) - np.maximum(0, s - band)
+                 + 1).sum())
+    return roof(4 * c * b * h * pairs, 4 * b * h * t * c * 2 + b * h * t * 4)
+
+
+def lstm_bound(n, hd):
+    """One recurrence launch in bf16: the 2 * 4H * H FLOP of W_hh h per
+    sequence, direction and step; xp [T, 8H, N] in, out [T, 2H, N] out,
+    W_hh and the bias in."""
+    flops = 2 * 2 * 4 * hd * hd * n * LSTM_STEPS
+    nbytes = 2 * LSTM_STEPS * n * 10 * hd + 2 * 2 * 4 * hd * hd + 4 * 8 * hd
+    return roof(flops, nbytes)
+
+
+def ftb_bound(shape):
+    """The fused tail in bf16: 2 * 2C * C' FLOP per (b, f, t); x and y
+    [B, C, F, T] and h [B, C, T] in, out [B, C', F, T] out (C' = C)."""
+    b, c, f, t = shape
+    return roof(2 * 2 * c * c * b * f * t,
+                2 * (3 * b * c * f * t + b * c * t + 2 * c * c) + 4 * c)
+
+
+def sdpa_call(q, k, v, w, band=0):
     """scaled_dot_product_attention on the same inputs: [B, H, T, C'] and
     a float bias -w_s |t - s| with -inf on the diagonal (the kernel has
-    -100 there) that requires grad. Returns (fn, inputs, dw of a bias
-    gradient)."""
+    -100 there) and, with a band, where |t - s| > band, that requires
+    grad. Returns (fn, inputs, dw of a bias gradient)."""
     import torch.nn.functional as F
 
     t = q.shape[1]
@@ -572,6 +829,8 @@ def sdpa_call(q, k, v, w):
     bias = (-w.permute(0, 2, 1).float()[..., None] * dist).to(q.dtype)
     bias.masked_fill_(torch.eye(t, dtype=torch.bool, device=q.device),
                       float("-inf"))                              # [B,H,s,t]
+    if band > 0:
+        bias.masked_fill_(dist > band, float("-inf"))
     ins = [x.permute(0, 2, 1, 3).detach().requires_grad_() for x in (q, k, v)]
     ins.append(bias.requires_grad_())
 
@@ -659,32 +918,133 @@ def attention_numbers(attention, smi):
     return out
 
 
+def ab_times(calls):
+    """{name: mean ms} of ``calls`` {name: (function, arguments, repeats)},
+    timed in the order given and back (plain, kernel, ..., kernel, plain)."""
+    ms = {key: [] for key in calls}
+    for key in list(calls) + list(calls)[::-1]:
+        f, a, n = calls[key]
+        with torch.no_grad():
+            ms[key].append(time_ms(f, a, n))
+    return {key: statistics.mean(v) for key, v in ms.items()}
+
+
+def optin_numbers(attention, lstm, ftb, smi):
+    """Per call at the opt-in serving path's shapes, in bf16: the kernel,
+    its plain version, the library yardstick and the bound. Returns
+    {kernel: {shape name: row}}, a row holding ms, plain_ms, library_ms,
+    bound_ms and bound_by."""
+    out = {"banded": {}, "lstm": {}, "ftb": {}}
+    for name, shape in (("serve_enc2", ENC2), ("serve_enc3", ENC3)):
+        q, k, v, w = attn_inputs(shape, torch.bfloat16, seed=210)
+        b, t, h, c = shape
+        fold = [attention._fold(x, b, t, h, c) for x in (q, k, v)]
+        wf = attention._fold_w(w, b, t, h)
+        fn, ins, _ = sdpa_call(q, k, v, w, band=BAND)
+        row = ab_times({
+            "plain_ms": (attention.banded_reference_attention,
+                         (q, k, v, w, BAND), 2),
+            "ms": (lambda: attention._kernel_fwd(*fold, wf, False, BAND),
+                   (), 10),
+            "library_ms": (fn, ins, 5)})
+        row["bound_ms"], row["bound_by"] = banded_bound(shape, BAND)
+        out["banded"][name] = row
+        del fn, ins
+        torch.cuda.empty_cache()
+    for name, (n, hd) in (("enc2", LSTM_ENC2), ("enc3", LSTM_ENC3)):
+        xp, w, bias = lstm_inputs(n, hd, torch.bfloat16, seed=220)
+        cudnn = torch.nn.LSTM(hd, hd, bidirectional=True, batch_first=True)
+        cudnn = cudnn.to("cuda", torch.bfloat16)
+        cudnn.flatten_parameters()
+        seq = torch.randn(n, LSTM_STEPS, hd, device="cuda",
+                          dtype=torch.bfloat16)
+        row = ab_times({
+            "plain_ms": (lstm.reference_lstm_recurrence, (xp, w, bias), 2),
+            "ms": (lstm.lstm_recurrence, (xp, w, bias), 10),
+            "library_ms": (cudnn, (seq,), 5)})
+        row["bound_ms"], row["bound_by"] = lstm_bound(n, hd)
+        out["lstm"][name] = row
+    for i, shape in enumerate(FTB_SHAPES):
+        x, hh, ka, kb, w_freq, b2 = ftb_inputs(shape, torch.bfloat16, 230)
+        y = ftb.freq_mix(x, w_freq)
+        row = ab_times({
+            "plain_ms": (ftb.reference_fused_tail, (x, y, hh, ka, kb, b2), 2),
+            "ms": (ftb._launch, (x, y, hh, ka, kb, b2), 10)})
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = ftb_bound(shape)
+        out["ftb"][f"enc{i}"] = row
+        del x, y
+        torch.cuda.empty_cache()
+    for kernel, rows in out.items():
+        for name, r in rows.items():
+            lib = ("-" if r["library_ms"] is None
+                   else f"{r['library_ms']:.3f}")
+            log(f"{kernel} {name} bf16, ms per call: kernel {r['ms']:.3f}, "
+                f"plain {r['plain_ms']:.3f}, library {lib}, bound "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}) [{smi}]")
+    return out
+
+
+def optin_entry(name, src, replaces, launches, err, rows, per_forward):
+    """A kernels-JSON entry of the opt-in serving path: the times summed
+    over one forward's calls (``per_forward`` {shape name: calls})."""
+    def total(key):
+        vals = [r[key] for r in rows.values()]
+        if None in vals:
+            return None
+        return sum(per_forward[n] * r[key] for n, r in rows.items())
+    top = max(rows.values(), key=lambda r: r["bound_ms"])
+    return {"name": name, "route": "cuda",
+            "source": f"aero_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": total("ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": top["bound_by"], "library_ms": total("library_ms"),
+            "per_call": rows, "calls_per_forward": per_forward}
+
+
 def main():
     smi = card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from aero_tpu_torch.ops import _build, attention
+    from aero_tpu_torch.ops import _build, attention, ftb, lstm
 
-    # 2. build
-    t0 = time.perf_counter()
-    _build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s ({_build.library_path()})")
-    print_ptxas(_build.build_log)
+    with phase("2 build"):
+        _build.library()
+        log(f"library: {_build.library_path()}")
+        print_ptxas(_build.build_log)
 
-    # 3-4. kernels against plain
-    fwd_err = check_kernel(attention)
-    bwd_abs, bwd_rel = check_backward(attention)
-
-    # 5. serving
-    serve_launches = serving(attention, smi)
-
-    # 6. training
-    train_gaps(attention)
-    train_launches = training(attention, smi)
-
-    # 7. attention numbers
-    nums = attention_numbers(attention, smi)
+    f32, bf16 = torch.float32, torch.bfloat16
+    with phase("3 attention forward"):
+        path_shapes = (ENC2, ENC3, TRAIN_ENC2, TRAIN_ENC3)
+        fwd_err = check_kernel(attention, [
+            ((2, t, 2, c), dt, 0) for dt in (f32, bf16) for c in (12, 24)
+            for t in (500, 2501, 3000, 4097, 6891)] + [
+            (s, bf16, 0) for s in path_shapes], path_shapes)
+        band_err = check_kernel(attention, [
+            ((2, t, 2, c), dt, w) for dt in (f32, bf16) for c in (12, 24)
+            for t in (501, 2501, 4097) for w in (16, BAND, t - 1)] + [
+            (ENC2, bf16, BAND), (ENC3, bf16, BAND)], (ENC2, ENC3))
+    with phase("4 attention backward"):
+        bwd_abs, bwd_rel = check_backward(attention, [
+            ((2, t, 2, c), dt, 0) for dt in (f32, bf16) for c in (12, 24)
+            for t in (501, 762, 1379, 2048, 2501, 4097)] + [
+            (TRAIN_ENC2, bf16, 0), (TRAIN_ENC3, bf16, 0)])
+        check_backward(attention, [
+            ((2, t, 2, c), dt, w) for dt in (f32, bf16) for c in (12, 24)
+            for t in (501, 2501) for w in (16, BAND)] + [
+            (TRAIN_ENC2, bf16, BAND), (TRAIN_ENC3, bf16, BAND)])
+    with phase("5 lstm and ftb kernels"):
+        lstm_err = check_lstm(lstm)
+        ftb_err = check_ftb(ftb)
+    with phase("6 serving"):
+        serve_launches, optin_launches = serving(attention, lstm, ftb, smi)
+    with phase("7 training"):
+        train_gaps(attention)
+        train_launches = training(attention, smi)
+    with phase("8 numbers"):
+        nums = attention_numbers(attention, smi)
+        opt = optin_numbers(attention, lstm, ftb, smi)
 
     def per_step(key):  # 2 calls at each train shape per step
         return 2 * (nums["train_enc2"][key] + nums["train_enc3"][key])
@@ -708,7 +1068,18 @@ def main():
               train_launches["forward"], fwd_err, None),
         entry("local_attention_bwd", "bwd", "local_attention_bwd.cu", 422,
               train_launches["backward"], bwd_abs, bwd_rel)]
-    kernels[0]["launches_serving_forward"] = serve_launches
+    kernels[0]["launches_serving_forward"] = serve_launches["attention"]
+    kernels += [
+        optin_entry("local_attention_banded_fwd", "local_attention.cu",
+                    "aero_tpu/ops/attention.py:180", optin_launches["banded"],
+                    band_err, opt["banded"],
+                    {"serve_enc2": 2, "serve_enc3": 2}),
+        optin_entry("lstm_recurrence", "lstm.cu", "aero_tpu/ops/lstm.py:54",
+                    optin_launches["lstm"], lstm_err, opt["lstm"],
+                    {"enc2": 4, "enc3": 4}),
+        optin_entry("ftb_tail", "ftb.cu", "aero_tpu/ops/ftb.py:48",
+                    optin_launches["ftb"], ftb_err, opt["ftb"],
+                    {f"enc{i}": 1 for i in range(4)})]
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
