@@ -1,4 +1,5 @@
-// LocalState attention forward for Hopper (sm_90a).
+// LocalState attention forward for Hopper (sm_90a): the entry point, and
+// the float32 kernel.
 //
 // Replaces the three TPU kernels of aero_tpu/ops/attention.py that compute
 // this function: _pallas_kernel_resident (line 298, one program per
@@ -6,7 +7,10 @@
 // gridded over query blocks with an online softmax) and
 // _pallas_kernel_banded (line 180, the same with keys restricted to
 // |t - s| <= W). Their split was a VMEM budget and a band; here one kernel
-// serves every T, with the band as an argument.
+// per dtype serves every T, with the band as an argument. bfloat16 runs
+// on the tensor cores (local_attention_mma.cu); float32 runs the kernel
+// below, whose float32 FMAs hold the float32 checks (atol 1e-3 with TF32
+// off) that bfloat16 products cannot.
 //
 // For each row r = b*H + h of the folded [rows, T, C] tensors:
 //
@@ -19,17 +23,18 @@
 // With a band W, scores[t, s] = -inf where |t - s| > W (the diagonal is
 // always in the band, so every query keeps a finite score).
 //
-// What bounds it on this card: the T^2 (query, key) pairs. Each pair costs
-// 2*C FMAs (score and accumulate) and one exponential, against 4*C bytes of
-// K/V per key that all queries of a block share. At C = 12 or 24 that is
-// far above the card's bytes-per-operation balance, so the kernel is bound
-// by FMA and MUFU (exp) issue and by shared-memory reads, not by HBM.
+// What bounds the float32 kernel on this card: the T^2 (query, key)
+// pairs. Each pair costs 2*C FMAs (score and accumulate) and one
+// exponential, against 4*C bytes of K/V per key that all queries of a
+// block share. At C = 12 or 24 that is far above the card's
+// bytes-per-operation balance, so the kernel is bound by FMA and MUFU
+// (exp) issue and by shared-memory reads, not by HBM.
 //
-// Design (simple and right first; tensor cores, TMA and wgmma come later):
+// Design of the float32 kernel (simple and right):
 // - one block per (tile of kThreads queries, row); one thread per query,
 //   holding q_s and an f32 accumulator of C values in registers;
-// - keys stream through shared memory in tiles of kTile, converted to f32
-//   once per tile; every thread reads the same key, so the reads broadcast;
+// - keys stream through shared memory in tiles of kTile; every thread
+//   reads the same key, so the reads broadcast;
 // - online softmax in f32 per tile: scores of the tile into registers, one
 //   rescale of the running sum per tile, one exp per (query, key);
 // - keys t >= T are masked to -inf; queries s >= T compute and are not
@@ -38,8 +43,6 @@
 //   queries q_lo..q_hi, and masks |t - s| > W to -inf. A tile can then lie
 //   wholly outside one thread's band: its running max stays -inf, and the
 //   rescale subtracts 0 instead, so exp(-inf - -inf) never makes a NaN.
-//   Bound at the serving shape [128, 2501, 4, 12] with W = 128: the bytes,
-//   about 123 MB in bf16 (0.04 ms).
 
 #include "local_attention.cuh"
 
@@ -179,7 +182,7 @@ extern "C" int aero_local_attention_fwd(const void* q, const void* k,
   if (dtype == 0)
     return launch<float>(q, k, v, wf, out, lf, rows, t_len, c, bw, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, wf, out, lf, rows, t_len, c, bw, st);
+    return aero::local_attention_fwd_mma(q, k, v, wf, out, lf, rows, t_len, c, bw, st);
   return cudaErrorInvalidValue;
 }
 

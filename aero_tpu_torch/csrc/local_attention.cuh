@@ -23,6 +23,12 @@ inline int effective_band(int band, int t_len) {
   return (band <= 0 || band > t_len) ? t_len : band;
 }
 
+// The bfloat16 forward on the tensor cores (local_attention_mma.cu): the
+// arguments of aero_local_attention_fwd, band already effective.
+cudaError_t local_attention_fwd_mma(const void* q, const void* k, const void* v,
+                                    const float* w, void* out, float* lse, int rows,
+                                    int t_len, int c, int band, cudaStream_t stream);
+
 }  // namespace aero
 
 // Expands CASE(C) once per head width the kernels are instantiated for.

@@ -1,4 +1,7 @@
-// Bidirectional LSTM recurrence for Hopper (sm_90a).
+// Bidirectional LSTM recurrence for Hopper (sm_90a): the entry point, and
+// the float32 kernel (bfloat16 runs on the tensor cores, lstm_mma.cu; the
+// float32 kernel's FMAs hold the float32 checks that bfloat16 products
+// cannot).
 //
 // Replaces the TPU kernel _kernel of aero_tpu/ops/lstm.py (line 54, called
 // through lstm_time_scan): the sequential part of one BLSTM layer, both
@@ -25,22 +28,29 @@
 // step per time step with the state in VMEM; here the time loop runs
 // inside the block.
 //
-// Design (simple and right first):
+// Design of the float32 kernel (simple and right):
 // - one block per (tile of 32 sequences, direction); 8 warps. Lane = the
 //   sequence, so every xp load and out store of a warp is 32 neighbouring
 //   elements. Warp r owns hidden units r*H/8 .. (r+1)*H/8 - 1 and computes
 //   all four gates of each, so the cell update needs no exchange of gates:
 //   c stays in registers;
-// - W_hh of the direction is staged once in dynamic shared memory as
-//   float32 (147 KB at H = 96), so the product converts nothing; where it
-//   does not fit (H >= 120) it is read from global memory through L1/L2;
-// - h of the tile lives in shared memory (float32 of the rounded values);
+// - W_hh of the direction is staged once in dynamic shared memory
+//   (147 KB at H = 96); where it does not fit (H >= 120) it is read from
+//   global memory through L1/L2;
+// - h of the tile lives in shared memory;
 //   per step: issue this step's xp loads, the product W_hh h with one
 //   broadcast vector load of 4 weights per 4 FMAs, a barrier, the cell
 //   update, h written back, a barrier;
 // - sigmoid and tanh with expf and tanhf (full precision, float32).
 
 #include "common.cuh"
+
+namespace aero {
+// lstm_mma.cu: the bfloat16 recurrence, w packed by pack_w_hh_mma
+cudaError_t lstm_recurrence_mma(const void* xp, const void* w, const float* bias,
+                                void* out, int t_len, int hidden, int n,
+                                cudaStream_t stream);
+}  // namespace aero
 
 namespace {
 
@@ -176,8 +186,10 @@ cudaError_t launch(const void* xp, const void* w, const float* bias, void* out,
 }  // namespace
 
 // xp: contiguous [t_len, 8*hidden, n], out: [t_len, 2*hidden, n], both of
-// dtype (0 = float32, 1 = bfloat16); w: the packed W_hh [2, hidden, 4*hidden]
-// in float32; bias: null or float32 [8*hidden]. hidden is a
+// dtype (0 = float32, 1 = bfloat16); w: the packed W_hh, for float32
+// pack_w_hh's [2, hidden, 8, 4, hidden/8] float32, for bfloat16
+// pack_w_hh_mma's fragments (ops/lstm.py); bias: null or float32
+// [8*hidden]. hidden is a
 // multiple of 8 up to 128. Launches on `stream`, allocates nothing and does
 // not synchronize. Returns the launch's cudaError_t (0 on success).
 extern "C" int aero_lstm_recurrence(const void* xp, const void* w,
@@ -187,7 +199,6 @@ extern "C" int aero_lstm_recurrence(const void* xp, const void* w,
   const float* bf = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(xp, w, bf, out, t_len, hidden, n, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(xp, w, bf, out, t_len, hidden, n, st);
+  if (dtype == 1) return aero::lstm_recurrence_mma(xp, w, bf, out, t_len, hidden, n, st);
   return cudaErrorInvalidValue;
 }

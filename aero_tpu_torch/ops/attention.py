@@ -35,6 +35,21 @@ from aero_tpu_torch.ops import _build
 KERNEL_WIDTHS = (2, 4, 8, 12, 16, 24, 32)
 
 
+def forward_route(dtype, c: int) -> str:
+    """The forward kernel a CUDA call of head width ``c`` takes, by dtype
+    alone, as ``aero_local_attention_fwd`` dispatches: ``"mma"`` for
+    bfloat16 (tensor cores, ``csrc/local_attention_mma.cu``), ``"simt"``
+    for float32 (``csrc/local_attention.cu``, whose float32 FMAs hold the
+    float32 tolerance). Raises on what no kernel takes."""
+    if dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"local_attention: q/k/v must share float32 or "
+                        f"bfloat16, got {dtype}")
+    if c not in KERNEL_WIDTHS:
+        raise ValueError(f"local_attention: head width {c} not in "
+                         f"{KERNEL_WIDTHS}")
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
 def band_from_env() -> int:
     """``AERO_ATTN_BAND`` (read at call time): the band's half-width, 0 for
     exact attention."""
@@ -141,13 +156,10 @@ def _check(q, k, v, w):
         raise ValueError(f"local_attention: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"w{tuple(w.shape)}")
-    if (q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype
-            or v.dtype != q.dtype):
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"local_attention: q/k/v must share float32 or "
                         f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if c not in KERNEL_WIDTHS:
-        raise ValueError(f"local_attention: head width {c} not in "
-                         f"{KERNEL_WIDTHS}")
+    forward_route(q.dtype, c)
     if b * h > 65535 or t == 0:
         raise ValueError(f"local_attention: rows {b * h} or T {t} out of "
                          "range")
@@ -169,6 +181,7 @@ def _unfold(x, b, t, h, c):  # [B*H, T, C] -> [B, T, H, C] (a view)
 def _kernel_fwd(qf, kf, vf, wf, with_lse: bool, band: int = 0):
     """Launch the forward kernel on folded inputs (``band`` 0: exact);
     returns (out, lse)."""
+    route = forward_route(qf.dtype, qf.shape[2])
     lib = _build.library()
     rows, t, c = qf.shape
     out = torch.empty_like(qf)
@@ -181,6 +194,8 @@ def _kernel_fwd(qf, kf, vf, wf, with_lse: bool, band: int = 0):
         band, _build.DTYPE_CODES[qf.dtype], stream)
     _build.raise_on(err, lib, "local_attention forward")
     local_attention.launches += 1
+    if route == "mma":
+        local_attention.mma_launches += 1
     if band > 0:
         local_attention.banded_launches += 1
     return out, lse
@@ -235,8 +250,8 @@ def local_attention(q, k, v, w, band: int = 0):
     ``band``.
 
     CPU tensors take the plain version (differentiable by autograd). CUDA
-    tensors launch the hand-written kernels (``csrc/local_attention.cu``)
-    at every T and band: inputs that require a gradient go through
+    tensors launch the hand-written kernels at every T and band, the
+    forward by ``forward_route``: inputs that require a gradient go through
     ``_LocalAttention``, whose backward is ``csrc/local_attention_bwd.cu``.
     Anything the kernels do not take raises.
     """
@@ -253,5 +268,6 @@ def local_attention(q, k, v, w, band: int = 0):
 
 
 local_attention.launches = 0           # forward kernel launches
+local_attention.mma_launches = 0       # ... of them on the tensor cores
 local_attention.banded_launches = 0    # ... of them with a band
 local_attention.backward_launches = 0  # backward kernel launches, 2 a call

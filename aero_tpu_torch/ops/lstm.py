@@ -26,6 +26,7 @@ layer's GEMM reads the output with no copy, the sequences innermost:
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -43,6 +44,22 @@ def enabled() -> bool:
 def takes_kernel(hidden: int) -> bool:
     """The shape gate of ``aero_tpu/models/modules.py:681-683``."""
     return hidden % 8 == 0 and hidden <= MAX_HIDDEN
+
+
+def route(dtype, hidden: int) -> str:
+    """The kernel a CUDA call takes, by dtype alone, as
+    ``aero_lstm_recurrence`` dispatches: ``"mma"`` for bfloat16 (tensor
+    cores, ``csrc/lstm_mma.cu``; every H the gate takes, K zero-padded to
+    a multiple of 16), ``"simt"`` for float32 (``csrc/lstm.cu``, whose
+    float32 FMAs hold the float32 tolerance). Raises on what no kernel
+    takes."""
+    if dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"lstm_recurrence: xp must be float32 or bfloat16, "
+                        f"got {dtype}")
+    if not takes_kernel(hidden):
+        raise ValueError(f"lstm_recurrence: H = {hidden} (needs H % 8 == 0 "
+                         f"and H <= {MAX_HIDDEN})")
+    return "mma" if dtype == torch.bfloat16 else "simt"
 
 
 def reference_lstm_recurrence(xp, w_hh, bias=None):
@@ -82,17 +99,14 @@ def _check(xp, w_hh, bias):
             bias is not None and bias.shape != (8 * hd,)):
         raise ValueError(f"lstm_recurrence: shapes xp{tuple(xp.shape)} "
                          f"w_hh{tuple(w_hh.shape)}")
-    if xp.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"lstm_recurrence: xp must be float32 or bfloat16, "
-                        f"got {xp.dtype}")
-    if not takes_kernel(hd) or t == 0 or n == 0:
-        raise ValueError(f"lstm_recurrence: H = {hd} (needs H % 8 == 0 and "
-                         f"H <= {MAX_HIDDEN}), T = {t}, N = {n}")
-    return t, hd, n
+    kernel = route(xp.dtype, hd)
+    if t == 0 or n == 0:
+        raise ValueError(f"lstm_recurrence: T = {t}, N = {n}")
+    return t, hd, n, kernel
 
 
 def pack_w_hh(w_hh, dtype):
-    """[2, 4H, H] -> the kernel's float32 [2, H, 8, 4, H/8] of values
+    """[2, 4H, H] -> the float32 kernel's [2, H, 8, 4, H/8] of values
     rounded to ``dtype``: for each k, thread row r's 4 gates x H/8 hidden
     units are contiguous."""
     hd = w_hh.shape[2]
@@ -101,17 +115,52 @@ def pack_w_hh(w_hh, dtype):
             .permute(0, 4, 2, 1, 3).contiguous())
 
 
+@functools.lru_cache(maxsize=None)
+def _fragment_index(hd: int, device: torch.device):
+    """Flat index into one direction's [4H, 16 KS] W_hh (K zero-padded)
+    of each entry of the [H/8, 32, 2, KS, 4, 2] fragments (pack_w_hh_mma);
+    built once per width and device."""
+    ks = (hd + 15) // 16
+
+    def axis(size, dim):  # arange along dim of the 6 fragment axes
+        shape = [1] * 6
+        shape[dim] = size
+        return torch.arange(size, device=device).view(shape)
+    r, lane, m, k, j, e = (axis(s, i) for i, s in
+                           enumerate((hd // 8, 32, 2, ks, 4, 2)))
+    rows = (2 * m + j % 2) * hd + 8 * r + lane // 4
+    cols = 16 * k + 2 * (lane % 4) + 8 * (j // 2) + e
+    return (rows * 16 * ks + cols).flatten()
+
+
+def pack_w_hh_mma(w_hh):
+    """[2, 4H, H] -> the tensor-core kernel's A fragments, bfloat16
+    [2, H/8, 32, 2, KS, 4, 2] with KS = ceil(H / 16): for direction d,
+    warp r, lane (g = lane // 4, q = lane % 4), m-tile m, k-step k,
+    register j and half e, the entry is
+    W_hh[d, (2m + j % 2) H + 8r + g, 16k + 2q + 8 (j // 2) + e], and 0
+    where that column is >= H. So m-tile 0 holds gates i (rows 0-7) and f
+    (rows 8-15) of warp r's units 8r..8r+7, m-tile 1 gates g and o, and
+    each lane reads its 8 KS registers as one contiguous run."""
+    hd = w_hh.shape[2]
+    ks = (hd + 15) // 16
+    padded = torch.nn.functional.pad(w_hh.to(torch.bfloat16),
+                                     (0, 16 * ks - hd))
+    index = _fragment_index(hd, w_hh.device)
+    return padded.view(2, -1)[:, index].view(2, hd // 8, 32, 2, ks, 4, 2)
+
+
 def lstm_recurrence(xp, w_hh, bias=None):
     """The recurrence (layouts in the module docstring). CPU tensors take
-    the plain version; CUDA tensors launch ``csrc/lstm.cu``, and anything
-    that kernel does not take raises."""
+    the plain version; CUDA tensors launch the kernel ``route`` names, and
+    anything no kernel takes raises."""
     if xp.device.type == "cpu" and w_hh.device.type == "cpu" and (
             bias is None or bias.device.type == "cpu"):
         return reference_lstm_recurrence(xp, w_hh, bias)
-    t, hd, n = _check(xp, w_hh, bias)
+    t, hd, n, kernel = _check(xp, w_hh, bias)
     lib = _build.library()
     xp = xp.contiguous()
-    w = pack_w_hh(w_hh, xp.dtype)
+    w = pack_w_hh_mma(w_hh) if kernel == "mma" else pack_w_hh(w_hh, xp.dtype)
     b = None if bias is None else bias.float().contiguous()
     out = torch.empty((t, 2 * hd, n), dtype=xp.dtype, device=xp.device)
     stream = torch.cuda.current_stream(xp.device).cuda_stream
@@ -120,7 +169,10 @@ def lstm_recurrence(xp, w_hh, bias=None):
         out.data_ptr(), t, hd, n, _build.DTYPE_CODES[xp.dtype], stream)
     _build.raise_on(err, lib, "lstm_recurrence")
     lstm_recurrence.launches += 1
+    if kernel == "mma":
+        lstm_recurrence.mma_launches += 1
     return out
 
 
-lstm_recurrence.launches = 0  # kernel launches
+lstm_recurrence.launches = 0      # kernel launches
+lstm_recurrence.mma_launches = 0  # ... of them on the tensor cores

@@ -12,40 +12,45 @@ prints its time:
 1. the card: its name and power limit from nvidia-smi; no CUDA -> fail;
 2. build the CUDA kernels from aero_tpu_torch/csrc with nvcc (sm_90a, one
    nvcc per source, all at once) and print each kernel instance's
-   registers and spills;
-3. the LocalState attention forward kernel against its plain PyTorch
-   version at head widths 12 and 24, T = 500 .. 6891, and at the serving
-   and train shapes; float32 (TF32 off) to atol 1e-3, bfloat16 to 3e-2.
+   registers and spills, and the instances that spill;
+3. the LocalState attention forward kernels against their plain PyTorch
+   version at head widths 12 and 24, T = 500 .. 6891, at every width of
+   KERNEL_WIDTHS at T = 777 in bfloat16, and at the serving and train
+   shapes; float32 (TF32 off, the SIMT kernel) to atol 1e-3, bfloat16
+   (the tensor-core kernel, which each bfloat16 call must take) to 3e-2.
    With a band W (16, 128, and W >= T - 1, which must equal the exact
    kernel bit for bit) against ``banded_reference_attention`` at T = 501,
-   2501 and 4097 and at the serving shapes;
+   777, 2501 and 4097 and at the serving shapes;
 4. the backward kernels through ``torch.autograd.grad`` of
    ``local_attention`` against ``reference_attention_bwd`` (dq, dk, dv, dw
    within tol * max|want|: 1e-4 in float32, 2e-2 in bfloat16) and the
    forward's log-sum-exp against ``logsumexp`` of the plain scores, at
    T = 501 .. 4097 and at the train shapes, exact and with bands 16 and
    128;
-5. the LSTM recurrence kernel against ``reference_lstm_recurrence`` at the
-   serving shapes (N 3328 / H 48, N 1664 / H 96, T 200), at H 8 and 72 and
-   at a ragged N, and the fused FTB tail kernel against its plain version
+5. the LSTM recurrence kernels (float32 SIMT, bfloat16 tensor cores)
+   against ``reference_lstm_recurrence`` at the serving shapes (N 3328 /
+   H 48, N 1664 / H 96, T 200), at H 8, 72 and 128 and at ragged N (1000,
+   1001), and the fused FTB tail kernel against its plain version
    at the four encoder shapes (B 16, T 2501) and at a ragged T and C',
    both in float32 and bfloat16 (tolerances LSTM_ATOL and FTB_TOL);
 6. serving: the canonical aero_4-16_512_64 generator from the seeded init
    in bfloat16, saved as a reference .th and loaded back as the CLI loads
    it: one forward at batch 16 x 10 s that must launch the forward kernel 4
-   times, the kernel-vs-plain gap of the whole forward on one chunk in
+   times, all on the tensor cores, the kernel-vs-plain gap of the whole
+   forward on one chunk in
    float32 and bfloat16, and the predict CLI on a 35 s file. Then the same
    generators with the opt-in switches (AERO_LSTM_KERNEL=1,
    AERO_FTB_KERNEL=1, AERO_ATTN_BAND=128): one forward that must launch the
-   LSTM kernel 8 times, the FTB kernel 4 times and the banded attention 4
-   times, and the whole-forward gap against the three plain versions. The
+   LSTM kernel 8 times and the banded attention 4 times, all on the tensor
+   cores, and the FTB kernel 4 times, and the whole-forward gap against
+   the three plain versions. The
    realtime factor and per-layer times of both paths, side by side;
 7. training: the canonical generator and MelGAN discriminator from the
    seeded init. At batch 4, one step's losses, generator gradient and each
    LocalState gradient leaf with the kernels against the same step with
    the plain attention under autograd, in float32 and bfloat16. Then
    bfloat16 at batch 16 x 2 s with bench.py's batch: 4 forward kernel
-   launches and 4 backward calls of 2 kernels each per step,
+   launches (tensor cores) and 4 backward calls of 2 kernels each per step,
    finite metrics, both networks' weights changed, the median step time
    of 5 after 2 warm-ups, throughput, peak memory, and a profiled step's
    top kernels and idle share;
@@ -56,7 +61,12 @@ prints its time:
    forward, the LSTM recurrence and the FTB tail against their plain
    versions, their library yardsticks (SDPA with a banded bias; one
    bidirectional cuDNN ``nn.LSTM`` layer, which includes the input
-   projection; none computes the FTB tail) and bounds.
+   projection, beside the port's projection matmul plus recurrence; none
+   computes the FTB tail) and bounds. A bound is the largest of the bytes
+   at the HBM rate, the operations at the bf16 tensor peak and the
+   exponentials at the special-function units' rate (16 per SM and clock
+   at the max SM clock); the LSTM's carries a note of its 200 dependent
+   steps.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and the result JSON.
@@ -65,6 +75,7 @@ and the result JSON.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -101,6 +112,8 @@ TRAIN_GRAD_GAP = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 TRAIN_ATTN_LEAF_GAP = {torch.float32: 1e-3, torch.bfloat16: 0.5}
 # H100 SXM peaks (data sheet, dense, at 700 W): bf16 tensor FLOP/s, HBM B/s
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+# special-function unit: 16 exponentials (ex2) a clock per SM
+SFU_PER_SM_CLOCK = 16
 # The opt-in serving path: the JAX package's three switches
 BAND = 128
 OPT_IN = {"AERO_LSTM_KERNEL": "1", "AERO_FTB_KERNEL": "1",
@@ -163,20 +176,24 @@ def switches(env):
 
 def print_ptxas(build_log: str):
     """One line per kernel instance (name<dtype, template width: the head
-    width C', H/8 or the output-channel tile): registers, shared memory
-    and spills, from nvcc -Xptxas=-v."""
-    name, spill = "?", ""
+    width C', H/8 or the output-channel tile; the tensor-core kernels,
+    bfloat16 only, C' or H): registers, shared memory and spills, from
+    nvcc -Xptxas=-v. Returns the names of the instances that spill."""
+    name, spill, spilling = "?", "", []
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"((?:local_attention|lstm_recurrence|ftb_tail)"
                           r"[a-z_]*_kernel)"
-                          r"I(f|13__nv_bfloat16)Li(\d+)E", line)
+                          r"I(?:(f|13__nv_bfloat16)Li|Li)(\d+)E", line)
             name = (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'}, {m[3]}>"
                     if m else line.split("'")[1])
         elif "spill stores" in line:
             spill = line.strip()
         elif "registers" in line:
             log(f"  ptxas {name}: {line.split(':', 1)[1].strip()}; {spill}")
+            if not spill.startswith("0 bytes stack frame, 0 bytes spill"):
+                spilling.append(name)
+    return spilling
 
 
 def attn_inputs(shape, dtype, seed):
@@ -201,14 +218,19 @@ def plain_attention(attention):
 
 def check_kernel(attention, cases, path_shapes) -> float:
     """Each case (shape, dtype, band; band 0 is exact) within its
-    tolerance, a band W >= T - 1 bit for bit the exact kernel; returns the
+    tolerance, on the route its dtype names (bfloat16: the tensor-core
+    kernel), a band W >= T - 1 bit for bit the exact kernel; returns the
     max error at ``path_shapes`` (bfloat16)."""
     path_err = 0.0
     plain = plain_attention(attention)
+    fn = attention.local_attention
     for i, (shape, dtype, band) in enumerate(cases):
         xs = attn_inputs(shape, dtype, seed=i + 100 * band)
-        got = attention.local_attention(*xs, band=band)
+        mma = fn.mma_launches
+        got = fn(*xs, band=band)
         torch.cuda.synchronize()
+        if fn.mma_launches - mma != int(dtype == torch.bfloat16):
+            raise AssertionError(f"{dtype} at {shape} took the wrong route")
         want = plain(*xs, band=band)
         err = (got.float() - want.float()).abs().max().item()
         tol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
@@ -304,18 +326,26 @@ def lstm_inputs(n, hd, dtype, seed):
 
 
 def check_lstm(lstm) -> float:
-    """The recurrence kernel against the plain version at the serving
+    """The recurrence kernels against the plain version at the serving
     shapes, at H 8, 72 and 128 (in float32 W_hh too large for shared
-    memory) and at a ragged N (not a multiple of the 32-sequence tile);
-    returns the max error at the serving shapes (bfloat16)."""
+    memory; in bfloat16 K padded from 8 and 72 to 16 and 80, and 16
+    sequences a block at 128) and at ragged N (not a multiple of the
+    sequence tile; N 1001, not a multiple of 8, copies xp without
+    cp.async), float32 on the SIMT kernel and bfloat16 on the tensor-core
+    kernel; returns the max error at the serving shapes (bfloat16)."""
     path = (LSTM_ENC2, LSTM_ENC3)
     cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
-             for s in path + ((512, 8), (320, 72), (256, 128), (1000, 48))]
+             for s in path + ((512, 8), (320, 72), (256, 128), (1000, 48),
+                              (1001, 96))]
     path_err = 0.0
     for i, ((n, hd), dtype) in enumerate(cases):
         xp, w, b = lstm_inputs(n, hd, dtype, seed=300 + i)
+        mma = lstm.lstm_recurrence.mma_launches
         got = lstm.lstm_recurrence(xp, w, b)
         torch.cuda.synchronize()
+        if (lstm.lstm_recurrence.mma_launches - mma
+                != int(dtype == torch.bfloat16)):
+            raise AssertionError(f"lstm {dtype} H={hd} took the wrong route")
         want = lstm.reference_lstm_recurrence(xp, w, b)
         err = (got.float() - want.float()).abs().max().item()
         tol = LSTM_ATOL[dtype]
@@ -521,15 +551,19 @@ def realtime_factor(fwd, x, smi, what) -> float:
 
 def launch_counts(attention, lstm, ftb):
     return {"attention": attention.local_attention.launches,
+            "attention_mma": attention.local_attention.mma_launches,
             "banded": attention.local_attention.banded_launches,
             "lstm": lstm.lstm_recurrence.launches,
+            "lstm_mma": lstm.lstm_recurrence.mma_launches,
             "ftb": ftb.ftb_tail.launches}
 
 
 def zero_counts(attention, lstm, ftb):
     attention.local_attention.launches = 0
+    attention.local_attention.mma_launches = 0
     attention.local_attention.banded_launches = 0
     lstm.lstm_recurrence.launches = 0
+    lstm.lstm_recurrence.mma_launches = 0
     ftb.ftb_tail.launches = 0
 
 
@@ -606,11 +640,13 @@ def serving(attention, lstm, ftb, smi):
                                      "with plain")
 
         y, launches = checked_forward(fwd, x, counted, {
-            "attention": 4, "banded": 0, "lstm": 0, "ftb": 0})
+            "attention": 4, "attention_mma": 4, "banded": 0, "lstm": 0,
+            "lstm_mma": 0, "ftb": 0})
         gaps("default")
         with switches(OPT_IN):
             y_opt, opt_launches = checked_forward(fwd, x, counted, {
-                "attention": 4, "banded": 4, "lstm": 8, "ftb": 4})
+                "attention": 4, "attention_mma": 4, "banded": 4, "lstm": 8,
+                "lstm_mma": 8, "ftb": 4})
             gaps("opt-in (" + ", ".join(f"{k}={v}" for k, v in OPT_IN.items())
                  + ")")
         log(f"opt-in vs default forward B={BATCH}, relative L2: "
@@ -723,18 +759,21 @@ def training(attention, smi):
     before = {n: [p.detach().clone() for p in m.parameters()]
               for n, m in models.items()}
     attention.local_attention.launches = 0
+    attention.local_attention.mma_launches = 0
     attention.local_attention.backward_launches = 0
     metrics = step(lr, hr)
     torch.cuda.synchronize()
     launches = {"forward": attention.local_attention.launches,
+                "forward_mma": attention.local_attention.mma_launches,
                 "backward": attention.local_attention.backward_launches}
     # 4 attention calls forward and 4 backward, each backward 2 kernels
     log(f"train step B={BATCH} x 2 s bf16 ({n_params} params): metrics "
         + ", ".join(f"{n} {v:.5f}" for n, v in metrics.items())
         + f"; attention kernel launches {launches}")
-    if launches != {"forward": 4, "backward": 8}:
-        raise AssertionError(f"expected 4 forward and 8 backward attention "
-                             f"kernel launches per step, got {launches}")
+    if launches != {"forward": 4, "forward_mma": 4, "backward": 8}:
+        raise AssertionError(f"expected 4 forward (tensor-core) and 8 "
+                             f"backward attention kernel launches per step, "
+                             f"got {launches}")
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite metrics {metrics}")
     for name, model in models.items():
@@ -765,19 +804,35 @@ def training(attention, smi):
     return launches
 
 
-def roof(flops, nbytes):
-    """(ms, 'bytes' or 'operations'): the larger of ``flops`` at the bf16
-    tensor peak and ``nbytes`` at the HBM bandwidth."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+@functools.lru_cache(maxsize=None)
+def exp_rate() -> float:
+    """Exponentials per second of the card's special-function units: 16
+    a clock per SM at the max SM clock nvidia-smi reports."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_PER_SM_CLOCK * sms * mhz * 1e6
+
+
+def roof(flops, nbytes, exps=0):
+    """(ms, 'bytes', 'operations' or 'exp'): the largest of ``flops`` at
+    the bf16 tensor peak, ``nbytes`` at the HBM bandwidth and ``exps``
+    exponentials at the special-function units' rate."""
+    times = {"operations": flops / PEAK_BF16_FLOPS,
+             "bytes": nbytes / PEAK_HBM_BYTES,
+             "exp": exps / exp_rate() if exps else 0.0}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
 
 
 def bound(shape, backward: bool, with_lse: bool):
-    """(ms, 'bytes' or 'operations'): the least time of one call in bf16:
-    4 * C' FLOP per (query, key) pair forward, 8 * C' backward, against
-    the bf16 tensor peak; each input read and each output written once,
-    against HBM bandwidth."""
+    """(ms, 'bytes', 'operations' or 'exp'): the least time of one call
+    in bf16: 4 * C' FLOP per (query, key) pair forward, 8 * C' backward,
+    against the bf16 tensor peak; one exponential per pair (p, or its
+    recomputation from the lse) against the special-function units; each
+    input read and each output written once, against HBM bandwidth."""
     b, t, h, c = shape
     rows = b * h
     flops = (8 if backward else 4) * c * rows * t * t
@@ -786,26 +841,37 @@ def bound(shape, backward: bool, with_lse: bool):
         nbytes = 8 * tensor + 3 * vector
     else:         # q k v, w in; out (and lse) out
         nbytes = 4 * tensor + (2 if with_lse else 1) * vector
-    return roof(flops, nbytes)
+    return roof(flops, nbytes, rows * t * t)
 
 
 def banded_bound(shape, band):
-    """The banded forward (no lse) in bf16: 4 * C' FLOP per (query, key)
-    pair inside the band, which this T and W give; q, k, v, w in, out."""
+    """The banded forward (no lse) in bf16: 4 * C' FLOP and one
+    exponential per (query, key) pair inside the band, which this T and W
+    give; q, k, v, w in, out."""
     b, t, h, c = shape
     s = np.arange(t)
     pairs = int((np.minimum(t - 1, s + band) - np.maximum(0, s - band)
                  + 1).sum())
-    return roof(4 * c * b * h * pairs, 4 * b * h * t * c * 2 + b * h * t * 4)
+    return roof(4 * c * b * h * pairs, 4 * b * h * t * c * 2 + b * h * t * 4,
+                b * h * pairs)
+
+
+# The LSTM's bound is a throughput bound: the 200 steps depend on each
+# other, so a latency floor of 200 x (one step's product, cell update and
+# barrier) sits under it that no roofline term states
+LSTM_BOUND_NOTE = ("throughput bound only; the 200 steps are dependent, a "
+                   "latency floor of 200 x (product + cell update + "
+                   "barrier) lies under it")
 
 
 def lstm_bound(n, hd):
     """One recurrence launch in bf16: the 2 * 4H * H FLOP of W_hh h per
-    sequence, direction and step; xp [T, 8H, N] in, out [T, 2H, N] out,
-    W_hh and the bias in."""
+    sequence, direction and step; 5 special-function operations (3
+    sigmoids, 2 tanh) per unit, sequence, direction and step; xp
+    [T, 8H, N] in, out [T, 2H, N] out, W_hh and the bias in."""
     flops = 2 * 2 * 4 * hd * hd * n * LSTM_STEPS
     nbytes = 2 * LSTM_STEPS * n * 10 * hd + 2 * 2 * 4 * hd * hd + 4 * 8 * hd
-    return roof(flops, nbytes)
+    return roof(flops, nbytes, 5 * 2 * hd * n * LSTM_STEPS)
 
 
 def ftb_bound(shape):
@@ -958,9 +1024,22 @@ def optin_numbers(attention, lstm, ftb, smi):
         cudnn.flatten_parameters()
         seq = torch.randn(n, LSTM_STEPS, hd, device="cuda",
                           dtype=torch.bfloat16)
+        # the port's whole layer on cuDNN's input, as models/modules.py
+        # BLSTM._recurrence runs it: the input projection of both
+        # directions on the [T, C, N] view of [N, T, C], then the
+        # recurrence. The weight is a copy that requires no grad, as the
+        # model's bf16 copy is: one that does keeps torch.matmul from
+        # folding the product into one GEMM (200 batched ones instead)
+        w_ih = torch.cat([cudnn.weight_ih_l0,
+                          cudnn.weight_ih_l0_reverse]).detach()
+
+        def layer():
+            return lstm.lstm_recurrence(
+                torch.matmul(w_ih, seq.permute(1, 2, 0)), w, bias)
         row = ab_times({
             "plain_ms": (lstm.reference_lstm_recurrence, (xp, w, bias), 2),
             "ms": (lstm.lstm_recurrence, (xp, w, bias), 10),
+            "layer_ms": (layer, (), 10),
             "library_ms": (cudnn, (seq,), 5)})
         row["bound_ms"], row["bound_by"] = lstm_bound(n, hd)
         out["lstm"][name] = row
@@ -979,8 +1058,10 @@ def optin_numbers(attention, lstm, ftb, smi):
         for name, r in rows.items():
             lib = ("-" if r["library_ms"] is None
                    else f"{r['library_ms']:.3f}")
+            layer = (f" (projection + kernel {r['layer_ms']:.3f}, like "
+                     "the library's layer)" if "layer_ms" in r else "")
             log(f"{kernel} {name} bf16, ms per call: kernel {r['ms']:.3f}, "
-                f"plain {r['plain_ms']:.3f}, library {lib}, bound "
+                f"plain {r['plain_ms']:.3f}, library {lib}{layer}, bound "
                 f"{r['bound_ms']:.4f} ({r['bound_by']}) [{smi}]")
     return out
 
@@ -994,12 +1075,15 @@ def optin_entry(name, src, replaces, launches, err, rows, per_forward):
             return None
         return sum(per_forward[n] * r[key] for n, r in rows.items())
     top = max(rows.values(), key=lambda r: r["bound_ms"])
-    return {"name": name, "route": "cuda",
-            "source": f"aero_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": total("ms"),
-            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": top["bound_by"], "library_ms": total("library_ms"),
-            "per_call": rows, "calls_per_forward": per_forward}
+    entry = {"name": name, "route": "cuda",
+             "source": f"aero_tpu_torch/csrc/{src}", "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": total("ms"),
+             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+             "bound_by": top["bound_by"], "library_ms": total("library_ms"),
+             "per_call": rows, "calls_per_forward": per_forward}
+    if "layer_ms" in top:
+        entry["layer_ms"] = total("layer_ms")
+    return entry
 
 
 def main():
@@ -1009,10 +1093,14 @@ def main():
 
     from aero_tpu_torch.ops import _build, attention, ftb, lstm
 
+    log(f"exp rate: {exp_rate():.4g} /s ({SFU_PER_SM_CLOCK} per SM and "
+        "clock at the max SM clock)")
     with phase("2 build"):
         _build.library()
         log(f"library: {_build.library_path()}")
-        print_ptxas(_build.build_log)
+        spilling = print_ptxas(_build.build_log)
+        log("ptxas: instances that spill: "
+            + (", ".join(spilling) if spilling else "none"))
 
     f32, bf16 = torch.float32, torch.bfloat16
     with phase("3 attention forward"):
@@ -1020,10 +1108,13 @@ def main():
         fwd_err = check_kernel(attention, [
             ((2, t, 2, c), dt, 0) for dt in (f32, bf16) for c in (12, 24)
             for t in (500, 2501, 3000, 4097, 6891)] + [
+            ((2, 777, 2, c), bf16, 0) for c in attention.KERNEL_WIDTHS] + [
             (s, bf16, 0) for s in path_shapes], path_shapes)
         band_err = check_kernel(attention, [
             ((2, t, 2, c), dt, w) for dt in (f32, bf16) for c in (12, 24)
             for t in (501, 2501, 4097) for w in (16, BAND, t - 1)] + [
+            ((2, 777, 2, c), bf16, w) for c in attention.KERNEL_WIDTHS
+            for w in (16, 776)] + [
             (ENC2, bf16, BAND), (ENC3, bf16, BAND)], (ENC2, ENC3))
     with phase("4 attention backward"):
         bwd_abs, bwd_rel = check_backward(attention, [
@@ -1064,22 +1155,23 @@ def main():
                          for n, r in nums.items()}}
 
     kernels = [
-        entry("local_attention_fwd", "fwd", "local_attention.cu", 298,
-              train_launches["forward"], fwd_err, None),
+        entry("local_attention_fwd", "fwd", "local_attention_mma.cu", 298,
+              train_launches["forward_mma"], fwd_err, None),
         entry("local_attention_bwd", "bwd", "local_attention_bwd.cu", 422,
               train_launches["backward"], bwd_abs, bwd_rel)]
-    kernels[0]["launches_serving_forward"] = serve_launches["attention"]
+    kernels[0]["launches_serving_forward"] = serve_launches["attention_mma"]
     kernels += [
-        optin_entry("local_attention_banded_fwd", "local_attention.cu",
+        optin_entry("local_attention_banded_fwd", "local_attention_mma.cu",
                     "aero_tpu/ops/attention.py:180", optin_launches["banded"],
                     band_err, opt["banded"],
                     {"serve_enc2": 2, "serve_enc3": 2}),
-        optin_entry("lstm_recurrence", "lstm.cu", "aero_tpu/ops/lstm.py:54",
-                    optin_launches["lstm"], lstm_err, opt["lstm"],
-                    {"enc2": 4, "enc3": 4}),
+        optin_entry("lstm_recurrence", "lstm_mma.cu",
+                    "aero_tpu/ops/lstm.py:54", optin_launches["lstm_mma"],
+                    lstm_err, opt["lstm"], {"enc2": 4, "enc3": 4}),
         optin_entry("ftb_tail", "ftb.cu", "aero_tpu/ops/ftb.py:48",
                     optin_launches["ftb"], ftb_err, opt["ftb"],
                     {f"enc{i}": 1 for i in range(4)})]
+    kernels[3]["bound_note"] = LSTM_BOUND_NOTE
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
