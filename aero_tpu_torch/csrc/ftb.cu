@@ -1,4 +1,6 @@
-// Fused FTB tail for Hopper (sm_90a).
+// Fused FTB tail for Hopper (sm_90a): the entry point of the float32
+// kernel. bfloat16 runs on the tensor cores (ftb_mma.cu); the float32 FMAs
+// here hold the float32 check (1e-5 of max) that bfloat16 products cannot.
 //
 // Replaces the TPU kernel _kernel of aero_tpu/ops/ftb.py (line 48, called
 // through ftb_tail): the end of the frequency transform block after the
@@ -152,8 +154,8 @@ cudaError_t launch(const void* x, const void* y, const void* h, const void* ka,
 }  // namespace
 
 // x, y, out: contiguous [batch, c_in or c_out, f_len, t_len]; h: [batch,
-// c_in, t_len]; ka, kb: [c_in, c_out], all of dtype (0 = float32,
-// 1 = bfloat16); b2: float32 [c_out]. tile (16, 32, 48 or 64) is the
+// c_in, t_len]; ka, kb: [c_in, c_out], all of dtype 0 (float32; bfloat16
+// takes aero_ftb_tail_mma); b2: float32 [c_out]. tile (16, 32, 48 or 64) is the
 // output channels per block. Launches on `stream`, allocates nothing and
 // does not synchronize. Returns the launch's cudaError_t (0 on success).
 extern "C" int aero_ftb_tail(const void* x, const void* y, const void* h,
@@ -168,8 +170,5 @@ extern "C" int aero_ftb_tail(const void* x, const void* y, const void* h,
   if (dtype == 0)
     return launch<float>(x, y, h, ka, kb, bf, out, batch, c_in, c_out, f_len,
                          t_len, tile, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, y, h, ka, kb, bf, out, batch, c_in, c_out,
-                                 f_len, t_len, tile, st);
   return cudaErrorInvalidValue;
 }

@@ -29,6 +29,13 @@ cudaError_t local_attention_fwd_mma(const void* q, const void* k, const void* v,
                                     const float* w, void* out, float* lse, int rows,
                                     int t_len, int c, int band, cudaStream_t stream);
 
+// The bfloat16 backward on the tensor cores (local_attention_bwd_mma.cu):
+// the arguments of aero_local_attention_bwd, band already effective.
+cudaError_t local_attention_bwd_mma(const void* q, const void* k, const void* v, const float* w,
+                                    const void* out, const void* g, const float* lse,
+                                    float* delta, void* dq, void* dk, void* dv, float* dw,
+                                    int rows, int t_len, int c, int band, cudaStream_t stream);
+
 }  // namespace aero
 
 // Expands CASE(C) once per head width the kernels are instantiated for.

@@ -1,4 +1,7 @@
-// LocalState attention backward for Hopper (sm_90a).
+// LocalState attention backward for Hopper (sm_90a): the entry point, and
+// the float32 kernels. bfloat16 runs on the tensor cores
+// (local_attention_bwd_mma.cu); the float32 FMAs here hold the float32
+// check (1e-4 of each gradient's max) that bfloat16 products cannot.
 //
 // Replaces the TPU kernel _pallas_bwd_kernel of aero_tpu/ops/attention.py
 // (line 422, called through pallas_attention_bwd and the custom VJP
@@ -249,7 +252,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* w,
 }  // namespace
 
 // q, k, v, out, g (the gradient of out), dq, dk, dv: contiguous
-// [rows, t_len, c] of dtype (0 = float32, 1 = bfloat16); w, lse (from the
+// [rows, t_len, c] of dtype (0 = float32, 1 = bfloat16, the tensor-core
+// kernels); w, lse (from the
 // forward), delta (scratch) and dw: contiguous float32 [rows, t_len];
 // band: 0 for exact attention, else the half-width W of the band (the
 // forward's lse must come from the same band).
@@ -274,7 +278,7 @@ extern "C" int aero_local_attention_bwd(const void* q, const void* k,
     return launch<float>(q, k, v, wf, out, g, lf, df, dq, dk, dv, dwf, rows,
                          t_len, c, bw, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, wf, out, g, lf, df, dq, dk, dv, dwf,
-                                 rows, t_len, c, bw, st);
+    return aero::local_attention_bwd_mma(q, k, v, wf, out, g, lf, df, dq, dk,
+                                         dv, dwf, rows, t_len, c, bw, st);
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy pieces of the bfloat16 kernels
-// (local_attention_mma.cu, lstm_mma.cu), as inline PTX for sm_90a.
+// (local_attention_mma.cu, local_attention_bwd_mma.cu, lstm_mma.cu,
+// ftb_mma.cu), as inline PTX for sm_90a.
 //
 // mma.sync.aligned.m16n8k16 with bfloat16 inputs and float32 sums; with
 // g = lane / 4 and q = lane % 4 (PTX ISA, "Matrix fragments for
@@ -74,6 +75,24 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(row))
                : "memory");
+}
+
+// Four 8 x 8 bfloat16 matrices: lanes 8i..8i+7 give the row addresses
+// (16 bytes each, 16-aligned) of matrix i; r[i] receives row g, columns
+// 2q..2q+1 of matrix i. On a [n][k] tile that is the B fragment register
+// that ldmatrix_x4_trans gives on the same values stored [k][n].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+
+// two bfloat16 products, each rounded once to the nearest bfloat16
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 p = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                             *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&p);
 }
 
 }  // namespace aero

@@ -99,7 +99,8 @@ def library() -> ctypes.CDLL:
             ("aero_local_attention_fwd", [ptr] * 6 + [i32] * 5 + [ptr]),
             ("aero_local_attention_bwd", [ptr] * 12 + [i32] * 5 + [ptr]),
             ("aero_lstm_recurrence", [ptr] * 4 + [i32] * 4 + [ptr]),
-            ("aero_ftb_tail", [ptr] * 7 + [i32] * 7 + [ptr])):
+            ("aero_ftb_tail", [ptr] * 7 + [i32] * 7 + [ptr]),
+            ("aero_ftb_tail_mma", [ptr] * 6 + [i32] * 5 + [ptr])):
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i32
     lib.aero_cuda_error_string.argtypes = [i32]

@@ -50,6 +50,15 @@ def forward_route(dtype, c: int) -> str:
     return "mma" if dtype == torch.bfloat16 else "simt"
 
 
+def backward_route(dtype, c: int) -> str:
+    """The backward kernels a CUDA call of head width ``c`` takes, by
+    dtype alone, as ``aero_local_attention_bwd`` dispatches: ``"mma"`` for
+    bfloat16 (tensor cores, ``csrc/local_attention_bwd_mma.cu``), ``"simt"``
+    for float32 (``csrc/local_attention_bwd.cu``). Raises on what no kernel
+    takes."""
+    return forward_route(dtype, c)
+
+
 def band_from_env() -> int:
     """``AERO_ATTN_BAND`` (read at call time): the band's half-width, 0 for
     exact attention."""
@@ -205,6 +214,7 @@ def _kernel_bwd(qf, kf, vf, wf, of, lse, gf, band: int = 0):
     """Launch the two backward kernels on folded tensors (``band`` as the
     forward's that gave ``lse``); returns (dq, dk, dv, dw) folded, dw in
     float32."""
+    route = backward_route(qf.dtype, qf.shape[2])
     lib = _build.library()
     rows, t, c = qf.shape
     dq, dk, dv = (torch.empty_like(qf) for _ in range(3))
@@ -218,6 +228,8 @@ def _kernel_bwd(qf, kf, vf, wf, of, lse, gf, band: int = 0):
         rows, t, c, band, _build.DTYPE_CODES[qf.dtype], stream)
     _build.raise_on(err, lib, "local_attention backward")
     local_attention.backward_launches += 2  # kernels (a) and (b)
+    if route == "mma":
+        local_attention.backward_mma_launches += 2
     return dq, dk, dv, dw
 
 
@@ -252,7 +264,7 @@ def local_attention(q, k, v, w, band: int = 0):
     CPU tensors take the plain version (differentiable by autograd). CUDA
     tensors launch the hand-written kernels at every T and band, the
     forward by ``forward_route``: inputs that require a gradient go through
-    ``_LocalAttention``, whose backward is ``csrc/local_attention_bwd.cu``.
+    ``_LocalAttention``, whose backward kernels ``backward_route`` names.
     Anything the kernels do not take raises.
     """
     if all(x.device.type == "cpu" for x in (q, k, v, w)):
@@ -271,3 +283,4 @@ local_attention.launches = 0           # forward kernel launches
 local_attention.mma_launches = 0       # ... of them on the tensor cores
 local_attention.banded_launches = 0    # ... of them with a band
 local_attention.backward_launches = 0  # backward kernel launches, 2 a call
+local_attention.backward_mma_launches = 0  # ... of them on the tensor cores

@@ -3,28 +3,31 @@ a kernel costs, and whether another block shape would be faster.
 
 Run from the repository root, on a machine with one CUDA GPU:
 
-    python3 -m aero_tpu_torch.tools.kernel_variants
+    python3 -m aero_tpu_torch.tools.kernel_variants [lstm] [attention] [ftb] [backward]
+
+(all four when none is named).
 
 Each variant is a kernel source of ``aero_tpu_torch/csrc`` with one text
 substitution (a part removed, a constant changed), written with its
 library under ``build/aero_tpu_torch/variants`` (git-ignored)
 and timed with CUDA events at the serving shapes, in bfloat16, beside the
 unchanged source ("base"). A variant that removes a part computes another
-function; the attention shape variants compute the same one, and those
-whose output is off the base output by more than the bfloat16 tolerance
-(0.03) are named. Prints one line per shape with the card's name and
-power limit.
+function; the shape variants (attention forward and backward, FTB tail)
+compute the same one, and those whose output is off the base output by
+more than the bfloat16 tolerance are named. Prints one line per shape with
+the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import ctypes
 import subprocess
+import sys
 
 import torch
 
 import chip_smoke as cs
-from aero_tpu_torch.ops import _build, attention, lstm
+from aero_tpu_torch.ops import _build, attention, ftb, lstm
 
 OUT = _build.BUILD_DIR / "variants"
 
@@ -79,6 +82,47 @@ extern "C" int variant_entry(const void* q, const void* k, const void* v,
   return aero::local_attention_fwd_mma(q, k, v, static_cast<const float*>(w),
                                        o, nullptr, rows, t, c, band,
                                        static_cast<cudaStream_t>(st));
+}
+"""
+
+# csrc/ftb_mma.cu: time tile and blocks per (b, f), which the source picks
+# by k-steps KS (enc0-1: 3, enc2: 6, enc3: 12), and ring depth
+_TIME = "constexpr int kTime = KS > 4 && KS <= 8 ? 64 : 32;"
+_SPLIT = "constexpr int kSplit = KS <= 4 ? 16 : 1;"
+FTB_SHAPES = {
+    "time_64": (_TIME, "constexpr int kTime = KS <= 8 ? 64 : 32;"),
+    "time_32": (_TIME, "constexpr int kTime = 32;"),
+    "time_16_enc0": (_TIME, "constexpr int kTime = KS > 4 && KS <= 8 ? 64 : "
+                            "(KS <= 4 ? 16 : 32);"),
+    "stages_3": ("constexpr int kStages = 2;", "constexpr int kStages = 3;"),
+    "split_8": (_SPLIT, "constexpr int kSplit = KS <= 4 ? 8 : 1;"),
+    "split_4_wide": (_SPLIT, "constexpr int kSplit = KS <= 4 ? 16 : 4;"),
+}
+FTB_ENTRY = """
+extern "C" int variant_entry(const void* x, const void* y, const void* ht,
+                             const void* w, const void* b2, void* out, int b,
+                             int c, int c_out, int f, int t, void* st) {
+  return aero_ftb_tail_mma(x, y, ht, w, b2, out, b, c, c_out, f, t, st);
+}
+"""
+
+# csrc/local_attention_bwd_mma.cu: block shape and occupancy
+_BWD_WARPS = "constexpr int kWarps = 4;"
+BWD_SHAPES = {
+    "warps_2": (_BWD_WARPS, "constexpr int kWarps = 2;"),
+    "warps_8": (_BWD_WARPS, "constexpr int kWarps = 8;"),
+    "tile_32": ("constexpr int kTile = 64; ", "constexpr int kTile = 32; "),
+}
+BWD_ENTRY = """
+extern "C" int variant_entry(const void* q, const void* k, const void* v,
+                             const void* w, const void* o, const void* g,
+                             const void* lse, void* delta, void* dq, void* dk,
+                             void* dv, void* dw, int rows, int t, int c,
+                             int band, void* st) {
+  return aero::local_attention_bwd_mma(
+      q, k, v, static_cast<const float*>(w), o, g,
+      static_cast<const float*>(lse), static_cast<float*>(delta), dq, dk, dv,
+      static_cast<float*>(dw), rows, t, c, band, static_cast<cudaStream_t>(st));
 }
 """
 
@@ -175,10 +219,89 @@ def attention_variants(smi):
                   f"[{smi}]", flush=True)
 
 
+def timed(libs, call):
+    """{name: mean ms} of ``call(lib, name)`` for each library, timed in
+    the order given and back."""
+    row = {}
+    for name, lib in list(libs.items()) + list(libs.items())[::-1]:
+        row.setdefault(name, []).append(
+            cs.time_ms(lambda lib=lib, name=name: call(lib, name), (), 10))
+    return {k: sum(v) / len(v) for k, v in row.items()}
+
+
+def ftb_variants(smi):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    libs = build("ftb_mma.cu", FTB_SHAPES, FTB_ENTRY,
+                 [ptr] * 6 + [i32] * 5 + [ptr])
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape in cs.FTB_SHAPES:
+        b, c, f, t = shape
+        x, h, ka, kb, w_freq, b2 = cs.ftb_inputs(shape, torch.bfloat16, 230)
+        y = ftb.freq_mix(x, w_freq)
+        ht = h.transpose(1, 2).contiguous()
+        w = ftb.pack_ftb_mma(ka, kb)
+        outs = {n: torch.empty_like(x) for n in libs}
+
+        def call(lib, name):
+            err = lib.variant_entry(x.data_ptr(), y.data_ptr(), ht.data_ptr(),
+                                    w.data_ptr(), b2.data_ptr(),
+                                    outs[name].data_ptr(), b, c, c, f, t,
+                                    stream)
+            if err:
+                raise RuntimeError(f"variant launch failed: {err}")
+        row = timed(libs, call)
+        scale = outs["base"].float().abs().max()
+        diff = [n for n, o in outs.items() if (o.float() - outs["base"].float()
+                                               ).abs().max() > cs.FTB_TOL[torch.bfloat16] * scale]
+        print(f"ftb {shape} bf16, ms per launch: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in row.items())
+            + f"; bound {cs.ftb_bound(shape)[0]:.4f}; off the base output "
+            f"by > 2^-6 of max: {diff or 'none'} [{smi}]", flush=True)
+        del x, y, outs
+        torch.cuda.empty_cache()
+
+
+def backward_variants(smi):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    libs = build("local_attention_bwd_mma.cu", BWD_SHAPES, BWD_ENTRY,
+                 [ptr] * 12 + [i32] * 4 + [ptr])
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape in (cs.TRAIN_ENC2, cs.TRAIN_ENC3, cs.ENC2):
+        q, k, v, w = cs.attn_inputs(shape, torch.bfloat16, seed=200)
+        b, t, h, c = shape
+        fold = [attention._fold(a, b, t, h, c) for a in (q, k, v)]
+        wf = attention._fold_w(w, b, t, h)
+        o_f, lse = attention._kernel_fwd(*fold, wf, with_lse=True)
+        g_f = torch.randn_like(o_f)
+        outs = {n: [torch.empty_like(o_f) for _ in range(3)]
+                + [torch.empty_like(wf), torch.empty_like(wf)] for n in libs}
+
+        def call(lib, name):
+            dq, dk, dv, dw, delta = outs[name]
+            err = lib.variant_entry(
+                *(a.data_ptr() for a in fold), wf.data_ptr(), o_f.data_ptr(),
+                g_f.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                b * h, t, c, t, stream)
+            if err:
+                raise RuntimeError(f"variant launch failed: {err}")
+        row = timed(libs, call)
+        diff = [n for n, o in outs.items()
+                if any((a.float() - e.float()).abs().max()
+                       > cs.BWD_TOL_BF16 * e.float().abs().max()
+                       for a, e in zip(o[:4], outs["base"][:4]))]
+        print(f"backward {shape} bf16, ms per call (2 kernels): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in row.items())
+            + f"; off the base gradients by > 2e-2 of max: {diff or 'none'} "
+            f"[{smi}]", flush=True)
+
+
 def main():
     smi = cs.card()
-    lstm_variants(smi)
-    attention_variants(smi)
+    runs = {"lstm": lstm_variants, "attention": attention_variants,
+            "ftb": ftb_variants, "backward": backward_variants}
+    for name in sys.argv[1:] or runs:
+        runs[name](smi)
 
 
 if __name__ == "__main__":

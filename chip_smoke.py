@@ -12,7 +12,8 @@ prints its time:
 1. the card: its name and power limit from nvidia-smi; no CUDA -> fail;
 2. build the CUDA kernels from aero_tpu_torch/csrc with nvcc (sm_90a, one
    nvcc per source, all at once) and print each kernel instance's
-   registers and spills, and the instances that spill;
+   registers and spills, and the instances that spill; a tensor-core
+   backward instance at head width 12 or 24 that spills fails;
 3. the LocalState attention forward kernels against their plain PyTorch
    version at head widths 12 and 24, T = 500 .. 6891, at every width of
    KERNEL_WIDTHS at T = 777 in bfloat16, and at the serving and train
@@ -23,16 +24,20 @@ prints its time:
    777, 2501 and 4097 and at the serving shapes;
 4. the backward kernels through ``torch.autograd.grad`` of
    ``local_attention`` against ``reference_attention_bwd`` (dq, dk, dv, dw
-   within tol * max|want|: 1e-4 in float32, 2e-2 in bfloat16) and the
-   forward's log-sum-exp against ``logsumexp`` of the plain scores, at
-   T = 501 .. 4097 and at the train shapes, exact and with bands 16 and
-   128;
+   within tol * max|want|: 1e-4 in float32 on the SIMT kernels, 2e-2 in
+   bfloat16 on the tensor-core kernels, which each call must take) and
+   the forward's log-sum-exp against ``logsumexp`` of the plain scores,
+   at T = 501 .. 4097 and at the train shapes, exact and with bands 16
+   and 128; a second call on the same inputs must give bit-identical
+   gradients;
 5. the LSTM recurrence kernels (float32 SIMT, bfloat16 tensor cores)
    against ``reference_lstm_recurrence`` at the serving shapes (N 3328 /
    H 48, N 1664 / H 96, T 200), at H 8, 72 and 128 and at ragged N (1000,
    1001), and the fused FTB tail kernel against its plain version
    at the four encoder shapes (B 16, T 2501) and at a ragged T and C',
-   both in float32 and bfloat16 (tolerances LSTM_ATOL and FTB_TOL);
+   both in float32 (SIMT) and bfloat16 (tensor cores), and in bfloat16 at
+   channel strides of 12 and 10 bytes mod 16 and with x and y at odd
+   phases (tolerances LSTM_ATOL and FTB_TOL);
 6. serving: the canonical aero_4-16_512_64 generator from the seeded init
    in bfloat16, saved as a reference .th and loaded back as the CLI loads
    it: one forward at batch 16 x 10 s that must launch the forward kernel 4
@@ -41,8 +46,8 @@ prints its time:
    float32 and bfloat16, and the predict CLI on a 35 s file. Then the same
    generators with the opt-in switches (AERO_LSTM_KERNEL=1,
    AERO_FTB_KERNEL=1, AERO_ATTN_BAND=128): one forward that must launch the
-   LSTM kernel 8 times and the banded attention 4 times, all on the tensor
-   cores, and the FTB kernel 4 times, and the whole-forward gap against
+   LSTM kernel 8 times, the banded attention 4 times and the FTB kernel 4
+   times, all on the tensor cores, and the whole-forward gap against
    the three plain versions. The
    realtime factor and per-layer times of both paths, side by side;
 7. training: the canonical generator and MelGAN discriminator from the
@@ -50,7 +55,8 @@ prints its time:
    LocalState gradient leaf with the kernels against the same step with
    the plain attention under autograd, in float32 and bfloat16. Then
    bfloat16 at batch 16 x 2 s with bench.py's batch: 4 forward kernel
-   launches (tensor cores) and 4 backward calls of 2 kernels each per step,
+   launches and 4 backward calls of 2 kernels each per step, all on the
+   tensor cores,
    finite metrics, both networks' weights changed, the median step time
    of 5 after 2 warm-ups, throughput, peak memory, and a profiled step's
    top kernels and idle share;
@@ -62,11 +68,13 @@ prints its time:
    versions, their library yardsticks (SDPA with a banded bias; one
    bidirectional cuDNN ``nn.LSTM`` layer, which includes the input
    projection, beside the port's projection matmul plus recurrence; none
-   computes the FTB tail) and bounds. A bound is the largest of the bytes
-   at the HBM rate, the operations at the bf16 tensor peak and the
-   exponentials at the special-function units' rate (16 per SM and clock
-   at the max SM clock); the LSTM's carries a note of its 200 dependent
-   steps.
+   computes the FTB tail; the FTB kernel also alone, without the
+   wrapper's transpose of h and packing of the weights) and bounds. A
+   bound is the largest of the bytes at the HBM rate, the operations at
+   the bf16 tensor peak and the exponentials at the special-function
+   units' rate (16 per SM and clock at the max SM clock); the LSTM's
+   carries a note of its 200 dependent steps, the backward's one of its
+   two exponentials per pair.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and the result JSON.
@@ -265,16 +273,22 @@ def check_backward(attention, cases):
               attn_inputs(shape, dtype, seed=1000 + i + 100 * band)]
         b, t, h, c = shape
         g = torch.randn(b, t, h, c, device="cuda").to(dtype)
-        before = (fn.launches, fn.backward_launches, fn.banded_launches)
+        before = (fn.launches, fn.backward_launches, fn.banded_launches,
+                  fn.backward_mma_launches)
         out = fn(*xs, band=band)
         got = torch.autograd.grad(out, xs, g)
         torch.cuda.synchronize()
         launched = (fn.launches - before[0], fn.backward_launches - before[1],
-                    fn.banded_launches - before[2])
-        if launched != (1, 2, int(band > 0)):
-            raise AssertionError(f"autograd at {shape} band {band} launched "
-                                 f"{launched} forward, backward and banded "
-                                 "kernels")
+                    fn.banded_launches - before[2],
+                    fn.backward_mma_launches - before[3])
+        if launched != (1, 2, int(band > 0), 2 * (dtype == torch.bfloat16)):
+            raise AssertionError(f"autograd at {shape} {dtype} band {band} "
+                                 f"launched {launched} forward, backward, "
+                                 "banded and tensor-core backward kernels")
+        again = torch.autograd.grad(fn(*xs, band=band), xs, g)
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"backward at {shape} {dtype} band {band} "
+                                 "differs between two calls")
         q, k, v, w = (x.detach() for x in xs)
         want = attention.reference_attention_bwd(q, k, v, w, out.detach(), g,
                                                  band=band)
@@ -308,7 +322,8 @@ def check_backward(attention, cases):
             f"band {band}: "
             + " ".join(f"{n} {e:.2e} ({r:.1e} of max)" for n, (e, r) in
                        zip(("dq", "dk", "dv", "dw"), errs))
-            + f"; tol {tol:g} of max; lse {lse_err:.2e}")
+            + f"; tol {tol:g} of max; lse {lse_err:.2e}; bit-identical "
+            "across two calls")
         if shape in (TRAIN_ENC2, TRAIN_ENC3):
             train_abs = max([train_abs] + [e for e, _ in errs])
             train_rel = max([train_rel] + [r for _, r in errs])
@@ -360,6 +375,15 @@ def check_lstm(lstm) -> float:
     return path_err
 
 
+def at_offset(x, elements):
+    """A contiguous copy of ``x`` that starts ``elements`` past an
+    allocation's start (so its rows take another phase)."""
+    flat = torch.empty(x.numel() + elements, dtype=x.dtype, device=x.device)
+    out = flat[elements:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def ftb_inputs(shape, dtype, seed):
     """x [B, C, F, T] ~ 0.3 N(0, 1) and h [B, C, T] = relu(N(0, 1)) in
     ``dtype``; Ka, Kb [C, C] ~ N(0, 1/C), W_freq [F, F] ~ N(0, 1/F) and
@@ -377,21 +401,42 @@ def ftb_inputs(shape, dtype, seed):
 
 def check_ftb(ftb) -> float:
     """The fused tail kernel against the plain version at the encoder
-    shapes, at a ragged T with 24 channels (one output tile of 32, 8 of
-    them masked) and at 100 channels (two tiles of 64); returns the max
+    shapes, at a ragged T with 24 channels (SIMT: one output tile of 32,
+    8 of them masked; tensor cores: C and C' padded to 32) and at 100
+    channels (SIMT: two tiles of 64; tensor cores: padded to 112, and a
+    channel stride F T 2 = 8 mod 16, so 8-byte pieces), float32 on the
+    SIMT kernel and bfloat16 on the tensor-core kernel; in bfloat16 also
+    at channel strides of 12 and 10 bytes mod 16 (4- and 2-byte pieces),
+    with x and y both 3 elements past their allocations (16-byte pieces,
+    tiles that start before t = 0 at every f) and with x alone 1 element
+    past (x and y at different phases: 2-byte pieces). Returns the max
     error at the encoder shapes (bfloat16)."""
-    cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
-             for s in FTB_SHAPES + ((3, 24, 40, 777), (2, 100, 12, 333))]
+    bf16 = torch.bfloat16
+    cases = [(s, dt, 0, 0) for dt in (torch.float32, bf16)
+             for s in FTB_SHAPES + ((3, 24, 40, 777), (2, 100, 12, 333))] + [
+        ((2, 48, 6, 301), bf16, 0, 0), ((2, 32, 5, 257), bf16, 0, 0),
+        ((2, 48, 64, 501), bf16, 3, 3), ((2, 48, 64, 501), bf16, 1, 0)]
     path_err = 0.0
-    for i, (shape, dtype) in enumerate(cases):
+    for i, (shape, dtype, x_off, y_off) in enumerate(cases):
         args = ftb_inputs(shape, dtype, seed=500 + i)
-        got = ftb.ftb_tail(*args)
+        mma = ftb.ftb_tail.mma_launches
+        if x_off or y_off:  # the kernel on x and y at these phases
+            x, h, ka, kb, w_freq, b2 = args
+            y = ftb.freq_mix(x, w_freq)
+            got = ftb._launch(at_offset(x, x_off), at_offset(y, y_off), h,
+                              ka, kb, b2)
+        else:
+            got = ftb.ftb_tail(*args)
         torch.cuda.synchronize()
+        if ftb.ftb_tail.mma_launches - mma != int(dtype == bf16):
+            raise AssertionError(f"ftb {dtype} at {shape} took the wrong "
+                                 "route")
         want = ftb.reference_ftb_tail(*args)
         err = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
         tol = FTB_TOL[dtype]
-        log(f"  ftb kernel vs plain {str(dtype)[6:]:8s} [B,C,F,T]={shape}: "
+        log(f"  ftb kernel vs plain {str(dtype)[6:]:8s} [B,C,F,T]={shape}"
+            f"{f' x, y at +{x_off}, +{y_off}' if x_off or y_off else ''}: "
             f"max abs err {err:.3e} ({err / scale:.1e} of max; tol {tol:g})")
         if got.shape != want.shape or not err <= tol * scale:
             raise AssertionError(f"ftb kernel disagrees with plain at {shape} "
@@ -555,7 +600,8 @@ def launch_counts(attention, lstm, ftb):
             "banded": attention.local_attention.banded_launches,
             "lstm": lstm.lstm_recurrence.launches,
             "lstm_mma": lstm.lstm_recurrence.mma_launches,
-            "ftb": ftb.ftb_tail.launches}
+            "ftb": ftb.ftb_tail.launches,
+            "ftb_mma": ftb.ftb_tail.mma_launches}
 
 
 def zero_counts(attention, lstm, ftb):
@@ -565,6 +611,7 @@ def zero_counts(attention, lstm, ftb):
     lstm.lstm_recurrence.launches = 0
     lstm.lstm_recurrence.mma_launches = 0
     ftb.ftb_tail.launches = 0
+    ftb.ftb_tail.mma_launches = 0
 
 
 def checked_forward(fwd, x, counted, want):
@@ -641,12 +688,12 @@ def serving(attention, lstm, ftb, smi):
 
         y, launches = checked_forward(fwd, x, counted, {
             "attention": 4, "attention_mma": 4, "banded": 0, "lstm": 0,
-            "lstm_mma": 0, "ftb": 0})
+            "lstm_mma": 0, "ftb": 0, "ftb_mma": 0})
         gaps("default")
         with switches(OPT_IN):
             y_opt, opt_launches = checked_forward(fwd, x, counted, {
                 "attention": 4, "attention_mma": 4, "banded": 4, "lstm": 8,
-                "lstm_mma": 8, "ftb": 4})
+                "lstm_mma": 8, "ftb": 4, "ftb_mma": 4})
             gaps("opt-in (" + ", ".join(f"{k}={v}" for k, v in OPT_IN.items())
                  + ")")
         log(f"opt-in vs default forward B={BATCH}, relative L2: "
@@ -761,19 +808,22 @@ def training(attention, smi):
     attention.local_attention.launches = 0
     attention.local_attention.mma_launches = 0
     attention.local_attention.backward_launches = 0
+    attention.local_attention.backward_mma_launches = 0
     metrics = step(lr, hr)
     torch.cuda.synchronize()
-    launches = {"forward": attention.local_attention.launches,
-                "forward_mma": attention.local_attention.mma_launches,
-                "backward": attention.local_attention.backward_launches}
+    fn = attention.local_attention
+    launches = {"forward": fn.launches, "forward_mma": fn.mma_launches,
+                "backward": fn.backward_launches,
+                "backward_mma": fn.backward_mma_launches}
     # 4 attention calls forward and 4 backward, each backward 2 kernels
     log(f"train step B={BATCH} x 2 s bf16 ({n_params} params): metrics "
         + ", ".join(f"{n} {v:.5f}" for n, v in metrics.items())
         + f"; attention kernel launches {launches}")
-    if launches != {"forward": 4, "forward_mma": 4, "backward": 8}:
-        raise AssertionError(f"expected 4 forward (tensor-core) and 8 "
-                             f"backward attention kernel launches per step, "
-                             f"got {launches}")
+    if launches != {"forward": 4, "forward_mma": 4, "backward": 8,
+                    "backward_mma": 8}:
+        raise AssertionError(f"expected 4 forward and 8 backward attention "
+                             f"kernel launches per step, all on the tensor "
+                             f"cores, got {launches}")
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite metrics {metrics}")
     for name, model in models.items():
@@ -862,6 +912,12 @@ def banded_bound(shape, band):
 LSTM_BOUND_NOTE = ("throughput bound only; the 200 steps are dependent, a "
                    "latency floor of 200 x (product + cell update + "
                    "barrier) lies under it")
+
+
+# The backward's bound counts one exponential per pair, as the forward's;
+# its two deterministic kernels recompute p once each
+BWD_BOUND_NOTE = ("one exp per (query, key) pair; the two kernels "
+                  "recompute p once each, so their exp floor is 2x this")
 
 
 def lstm_bound(n, hd):
@@ -1046,9 +1102,13 @@ def optin_numbers(attention, lstm, ftb, smi):
     for i, shape in enumerate(FTB_SHAPES):
         x, hh, ka, kb, w_freq, b2 = ftb_inputs(shape, torch.bfloat16, 230)
         y = ftb.freq_mix(x, w_freq)
+        # the wrapper's call, and the kernel alone on h already transposed
+        # and the weights already packed
+        ht, w = hh.transpose(1, 2).contiguous(), ftb.pack_ftb_mma(ka, kb)
         row = ab_times({
             "plain_ms": (ftb.reference_fused_tail, (x, y, hh, ka, kb, b2), 2),
-            "ms": (ftb._launch, (x, y, hh, ka, kb, b2), 10)})
+            "ms": (ftb._launch, (x, y, hh, ka, kb, b2), 10),
+            "kernel_ms": (ftb._launch_mma, (x, y, ht, w, b2), 10)})
         row["library_ms"] = None
         row["bound_ms"], row["bound_by"] = ftb_bound(shape)
         out["ftb"][f"enc{i}"] = row
@@ -1060,6 +1120,9 @@ def optin_numbers(attention, lstm, ftb, smi):
                    else f"{r['library_ms']:.3f}")
             layer = (f" (projection + kernel {r['layer_ms']:.3f}, like "
                      "the library's layer)" if "layer_ms" in r else "")
+            if "kernel_ms" in r:
+                layer = (f" (the kernel alone on transposed h and packed "
+                         f"weights {r['kernel_ms']:.3f})")
             log(f"{kernel} {name} bf16, ms per call: kernel {r['ms']:.3f}, "
                 f"plain {r['plain_ms']:.3f}, library {lib}{layer}, bound "
                 f"{r['bound_ms']:.4f} ({r['bound_by']}) [{smi}]")
@@ -1081,8 +1144,9 @@ def optin_entry(name, src, replaces, launches, err, rows, per_forward):
              "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
              "bound_by": top["bound_by"], "library_ms": total("library_ms"),
              "per_call": rows, "calls_per_forward": per_forward}
-    if "layer_ms" in top:
-        entry["layer_ms"] = total("layer_ms")
+    for key in ("layer_ms", "kernel_ms"):
+        if key in top:
+            entry[key] = total(key)
     return entry
 
 
@@ -1098,9 +1162,17 @@ def main():
     with phase("2 build"):
         _build.library()
         log(f"library: {_build.library_path()}")
+        if not _build.build_log:
+            log("ptxas: the library was built by an earlier process; no "
+                "registers or spills to report")
         spilling = print_ptxas(_build.build_log)
         log("ptxas: instances that spill: "
             + (", ".join(spilling) if spilling else "none"))
+        bad = [n for n in spilling if "_mma_kernel<" in n and "bwd" in n
+               and n.endswith((", 12>", ", 24>"))]
+        if bad:
+            raise AssertionError(f"tensor-core backward spills at a path "
+                                 f"width: {bad}")
 
     f32, bf16 = torch.float32, torch.bfloat16
     with phase("3 attention forward"):
@@ -1157,8 +1229,9 @@ def main():
     kernels = [
         entry("local_attention_fwd", "fwd", "local_attention_mma.cu", 298,
               train_launches["forward_mma"], fwd_err, None),
-        entry("local_attention_bwd", "bwd", "local_attention_bwd.cu", 422,
-              train_launches["backward"], bwd_abs, bwd_rel)]
+        entry("local_attention_bwd", "bwd", "local_attention_bwd_mma.cu",
+              422, train_launches["backward_mma"], bwd_abs, bwd_rel)]
+    kernels[1]["bound_note"] = BWD_BOUND_NOTE
     kernels[0]["launches_serving_forward"] = serve_launches["attention_mma"]
     kernels += [
         optin_entry("local_attention_banded_fwd", "local_attention_mma.cu",
@@ -1168,8 +1241,8 @@ def main():
         optin_entry("lstm_recurrence", "lstm_mma.cu",
                     "aero_tpu/ops/lstm.py:54", optin_launches["lstm_mma"],
                     lstm_err, opt["lstm"], {"enc2": 4, "enc3": 4}),
-        optin_entry("ftb_tail", "ftb.cu", "aero_tpu/ops/ftb.py:48",
-                    optin_launches["ftb"], ftb_err, opt["ftb"],
+        optin_entry("ftb_tail", "ftb_mma.cu", "aero_tpu/ops/ftb.py:48",
+                    optin_launches["ftb_mma"], ftb_err, opt["ftb"],
                     {f"enc{i}": 1 for i in range(4)})]
     kernels[3]["bound_note"] = LSTM_BOUND_NOTE
     log(json.dumps({"kernels": kernels}))
