@@ -4,14 +4,23 @@ A port of ``aero_tpu`` (JAX/Pallas on TPU), which stays the reference it is
 tested against. Imports ``torch`` and never ``jax`` or ``aero_tpu``.
 
 - ``ops``    — STFT/iSTFT, LocalState attention (plain versions and the CUDA
-               kernels' wrapper, forward and backward), the nvcc build of
-               ``csrc/``.
+               kernels' wrappers, forward and backward), the LSTM recurrence
+               and FTB tail kernels, the nvcc build of ``csrc/``.
 - ``models`` — the Aero generator, its building blocks, the MelGAN
                discriminator, seeded init, factory.
 - ``losses`` — the multi-resolution STFT loss and the MelGAN losses.
-- ``train``  — the GAN train step, model building, and the weight bridge
-               from JAX variables and reference ``.th`` files.
-- ``eval``   — full-file and chunked inference.
-- ``data``, ``utils`` — WAV I/O and the config loader (own copies).
-- ``predict``— the single-file inference CLI.
+- ``train``  — the GAN train step, the Solver (epoch loop, validation,
+               best states, evaluation schedule), checkpoints (the JAX
+               package's ``.atpu`` in msgpack, reference ``.th`` through a
+               restricted unpickler, Adam moments both ways), model
+               building, the weight bridge from JAX variables, and the
+               train CLI (``python -m aero_tpu_torch.train``).
+- ``data``   — WAV I/O, the native reader, numpy resampling, the datasets
+               (``LrHrSet``, ``PrHrSet``), the sharded ``Loader`` and
+               dataset preparation.
+- ``eval``   — full-file and chunked inference, LSD and ViSQOL, enhance
+               and evaluate.
+- ``utils``  — the config loader, logging, heatmap PNGs, the wandb shim,
+               the host STFT.
+- ``test``, ``predict`` — the test-set and single-file CLIs.
 """

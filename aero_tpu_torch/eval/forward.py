@@ -1,12 +1,14 @@
-"""Full-file and chunked inference (port of ``aero_tpu/eval/forward.py:25-231``).
+"""Full-file and chunked inference (port of ``aero_tpu/eval/forward.py``).
 
-``EvalForward`` pads a file up to a whole number of seconds by reflecting
-its tail, runs the generator under ``torch.inference_mode`` on an explicit
-device and trims to the exact scaled length. PyTorch runs eagerly, so the
-bucket only keeps the arithmetic identical to the JAX package's default
-(``eval_bucket_s: 1.0``). ``ChunkedInference`` splits a file into fixed
-chunks on the host, as the reference predict does, optionally running all
-full chunks as one batch.
+``EvalForward`` pads a file up to a whole number of ``bucket_s`` seconds by
+reflecting its tail (``bucket_s=0``: the exact length), runs the generator
+under ``torch.inference_mode`` on an explicit device and trims to the exact
+scaled length; with ``return_spec`` it also returns the generator's own
+output and input spectra. PyTorch runs eagerly, so the bucket only keeps
+the arithmetic identical to the JAX package's (``eval_bucket_s``).
+``ChunkedInference`` splits a file into fixed chunks on the host, as the
+reference predict does, optionally running all full chunks as one batch.
+``make_spec_fns`` gives the spectra that the evaluation's PNGs plot.
 """
 
 from __future__ import annotations
@@ -39,28 +41,50 @@ def _pad_reflect_tail(x: np.ndarray, target: int) -> np.ndarray:
 
 
 class EvalForward:
-    """Generator forward of host arrays on ``device``, padded to 1 s buckets.
+    """Generator forward of host arrays on ``device``, padded to buckets of
+    ``bucket_s`` seconds.
 
     ``scale`` is output length over input length (4 for 4->16 kHz).
+    ``return_spec``: calls return (pr, pr_spec, lr_spec), the spectra as
+    complex numpy arrays [B, C, F, T] of the padded input.
     """
 
     def __init__(self, gen: torch.nn.Module, scale: float, lr_sr: int,
-                 device):
-        self.gen = gen
+                 device, bucket_s: float = 1.0, return_spec: bool = False):
         self.scale = scale
-        self.bucket = lr_sr
+        self.bucket = int(bucket_s * lr_sr)
+        self.return_spec = return_spec
         self.device = torch.device(device)
+        self.update_state(gen)
 
-    def __call__(self, lr: np.ndarray) -> np.ndarray:
-        """lr: [B, 1, T] numpy -> pr [B, 1, T * scale] float32 numpy."""
+    def update_state(self, gen: torch.nn.Module) -> None:
+        """Run later calls through ``gen`` (the Solver's generator, or a
+        copy that holds its best state)."""
+        self.gen = gen
+
+    def _input(self, lr: np.ndarray) -> torch.Tensor:
         t = lr.shape[-1]
-        padded_t = bucket_target(t, self.bucket)
+        padded_t = t if self.bucket <= 0 else bucket_target(t, self.bucket)
         x = _pad_reflect_tail(np.asarray(lr, np.float32), padded_t)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def forward_tensor(self, lr: np.ndarray) -> torch.Tensor:
+        """The prediction [B, 1, T * scale] as a float32 tensor on the
+        device, without its spectra."""
         with torch.inference_mode():
-            out = self.gen(torch.from_numpy(np.ascontiguousarray(x))
-                           .to(self.device))
-            out = out.float().cpu().numpy()
-        return out[..., :int(t * self.scale)]
+            out = self.gen(self._input(lr)).float()
+        return out[..., :int(lr.shape[-1] * self.scale)]
+
+    def __call__(self, lr: np.ndarray):
+        """lr: [B, 1, T] numpy -> pr [B, 1, T * scale] float32 numpy (and
+        the spectra with ``return_spec``)."""
+        if not self.return_spec:
+            return self.forward_tensor(lr).cpu().numpy()
+        target = int(lr.shape[-1] * self.scale)
+        with torch.inference_mode():
+            pr, pr_spec, lr_spec = self.gen(self._input(lr), return_spec=True)
+            return (pr.float().cpu().numpy()[..., :target],
+                    pr_spec.cpu().numpy(), lr_spec.cpu().numpy())
 
 
 class ChunkedInference:
@@ -99,3 +123,26 @@ class ChunkedInference:
         if n_full * self.chunk < t:
             outs.append(np.asarray(self.forward(lr[..., n_full * self.chunk:])))
         return np.concatenate(outs, axis=-1)
+
+
+def make_spec_fns(args, gen: torch.nn.Module):
+    """Spectra for the evaluation's PNGs, numpy in and complex numpy out:
+    for Aero ``{"hr_spec"}``, the generator's analysis STFT scaled to the
+    hr rate; else ``{"spec"}``, a plain STFT with a window of nfft // 4."""
+    from aero_tpu_torch.ops.spec import spectro
+
+    exp = args.experiment
+    device = next(gen.parameters()).device
+
+    def on_device(fn):
+        def run(x):
+            with torch.inference_mode():
+                x = torch.as_tensor(np.asarray(x, np.float32), device=device)
+                return fn(x).cpu().numpy()
+        return run
+
+    if exp.model == "aero":
+        return {"hr_spec": on_device(lambda hr: gen._spec(hr, scale=True))}
+    nfft = int(exp.nfft)
+    return {"spec": on_device(
+        lambda x: spectro(x, nfft, win_length=nfft // 4))}

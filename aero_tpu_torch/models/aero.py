@@ -210,11 +210,17 @@ class Aero(nn.Module):
                 freqs //= stri
         return plan
 
-    def _spec(self, x):
+    def _spec(self, x, scale: bool = False):
+        """Analysis STFT; ``scale`` takes hop and window at the hr rate (the
+        spectrum of an hr signal on the generator's own grid)."""
         hl = self.true_hop_length
+        win_length = self.win_length
         if x.shape[-1] % hl:
             x = F.pad(x, (0, hl - x.shape[-1] % hl))
-        return spectro(x, self.nfft, hl, win_length=self.win_length)[..., :-1, :]
+        if scale:
+            hl = int(hl * self.scale)
+            win_length = int(win_length * self.scale)
+        return spectro(x, self.nfft, hl, win_length=win_length)[..., :-1, :]
 
     def _ispec(self, z):
         hl = int(self.true_hop_length * self.scale)
@@ -222,8 +228,10 @@ class Aero(nn.Module):
         z = torch.cat([z, torch.zeros_like(z[..., :1, :])], dim=-2)
         return ispectro(z, hl, win_length=win_length)
 
-    def forward(self, mix):
-        """mix: [B, C_in, T] or [B, T] float -> [B, C_out, T * scale] float32."""
+    def forward(self, mix, return_spec: bool = False):
+        """mix: [B, C_in, T] or [B, T] float -> [B, C_out, T * scale] float32;
+        with ``return_spec`` also the output spectrum [B, C_out, F, T]
+        (complex64) and the input's [B, C_in, F, T], as (out, x_spec, z)."""
         if mix.dim() == 2:
             mix = mix[:, None, :]
         length = mix.shape[-1]
@@ -251,6 +259,8 @@ class Aero(nn.Module):
         x = x.float() * std + mean
         x = x.reshape(b, self.out_channels, 2, f, t).permute(0, 1, 3, 4, 2)
         x_spec = torch.view_as_complex(x.contiguous())
-        out = self._ispec(x_spec)
-        return out[..., :int(length * self.scale)]
+        out = self._ispec(x_spec)[..., :int(length * self.scale)]
+        if return_spec:
+            return out, x_spec, z
+        return out
 

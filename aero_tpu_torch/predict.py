@@ -3,11 +3,14 @@
 Usage::
 
     python -m aero_tpu_torch.predict experiment=aero_4-16_512_64 dset=4-16 \\
-        +filename=<in.wav> +output=<dir> checkpoint_file=<checkpoint.th> \\
-        [precision=bfloat16] [device=cuda|cpu]
+        +filename=<in.wav> +output=<dir> [checkpoint_file=<.atpu or .th>] \\
+        [continue_best=true] [precision=bfloat16] [device=cuda|cpu]
 
-Loads the generator from a reference-format ``.th``, splits the input into
-10 s chunks (all full chunks as one batch), times the prediction and writes
+Changes into the run directory ``outputs/<dset>/<experiment>/`` (as the
+train CLI does) and loads the generator from ``checkpoint_file`` there
+(default ``checkpoint.atpu``; an ``.atpu`` or a reference-format ``.th``;
+its best state with ``continue_best``). Splits the input into 10 s chunks
+(all full chunks as one batch), times the prediction and writes
 ``<stem>_pr.wav``. The device is CUDA unless ``device=cpu`` is given; with
 no GPU present it raises rather than running on the CPU.
 """
@@ -25,8 +28,7 @@ import torch
 
 from aero_tpu_torch.data import audio_io
 from aero_tpu_torch.eval.forward import ChunkedInference, EvalForward
-from aero_tpu_torch.models.factory import build_generator
-from aero_tpu_torch.train.from_jax import load_reference_checkpoint
+from aero_tpu_torch.train.build import load_generator_state
 
 logger = logging.getLogger(__name__)
 
@@ -57,7 +59,8 @@ def write_wav(wav: np.ndarray, filename: str, sr: int) -> None:
 
 
 def predict_file(gen: torch.nn.Module, filename: str, output_dir: str,
-                 lr_sr: int, hr_sr: int, device) -> dict:
+                 lr_sr: int, hr_sr: int, device, bucket_s: float = 1.0
+                 ) -> dict:
     """Upsample one WAV file with ``gen``; returns the output path, sample
     counts, the timed seconds and the realtime factor. One untimed run
     first warms both shapes (the batched chunks and the ragged tail)."""
@@ -66,7 +69,8 @@ def predict_file(gen: torch.nn.Module, filename: str, output_dir: str,
     if sr != lr_sr:
         raise ValueError(f"{filename}: sample rate {sr}, expected {lr_sr}")
     scale = hr_sr / lr_sr
-    fwd = EvalForward(gen, scale=scale, lr_sr=sr, device=device)
+    fwd = EvalForward(gen, scale=scale, lr_sr=sr, device=device,
+                      bucket_s=bucket_s)
     chunked = ChunkedInference(fwd, sr, segment_s=SEGMENT_DURATION_SEC,
                                batch_chunks=True)
     x = lr_sig[None]  # [1, C, T]
@@ -88,7 +92,10 @@ def predict_file(gen: torch.nn.Module, filename: str, output_dir: str,
 
 
 def main(argv=None) -> dict:
-    from aero_tpu_torch.utils.config import load_config  # needs PyYAML
+    """Returns ``predict_file``'s record; the working directory is restored
+    on return."""
+    from aero_tpu_torch.utils.config import (  # needs PyYAML
+        load_config, run_dir_for)
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     args = load_config(str(CONF_DIR), "main_config",
@@ -99,13 +106,19 @@ def main(argv=None) -> dict:
     if exp.get("upsample", False):
         raise NotImplementedError("upsample=true datasets are not ported")
     device = resolve_device(args.get("device"))
-    precision = str(args.get("precision", "float32") or "float32")
-    gen = build_generator(exp.aero, precision, device)
-    state, _ = load_reference_checkpoint(str(args.checkpoint_file))
-    gen.load_state_dict(state, strict=True)
-    return predict_file(gen, os.path.abspath(str(args.filename)),
-                        os.path.abspath(str(args.output)), int(exp.lr_sr),
-                        int(exp.hr_sr), device)
+    filename = os.path.abspath(str(args.filename))
+    output_dir = os.path.abspath(str(args.output))
+    cwd = os.getcwd()
+    run_dir = run_dir_for(args)
+    os.makedirs(run_dir, exist_ok=True)
+    os.chdir(run_dir)
+    try:
+        gen = load_generator_state(args, device)
+        return predict_file(gen, filename, output_dir, int(exp.lr_sr),
+                            int(exp.hr_sr), device,
+                            float(args.get("eval_bucket_s", 1.0)))
+    finally:
+        os.chdir(cwd)
 
 
 if __name__ == "__main__":

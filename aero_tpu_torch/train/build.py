@@ -35,3 +35,21 @@ def build_models(args, device="cuda", seed: int = 0
                                            seed)}
     models.update(build_discriminators(exp, precision, device, seed + 1))
     return models
+
+
+def load_generator_state(args, device="cuda"):
+    """The generator of ``args.checkpoint_file`` (an ``.atpu`` or a
+    reference ``.th``, resolved against the working directory; its best
+    state with ``continue_best``) on ``device`` in ``args.precision``, in
+    eval mode: what the test and predict CLIs serve."""
+    from aero_tpu_torch.train.checkpoint import generator_state_dict
+
+    exp = args.experiment
+    if exp.model != "aero":
+        raise NotImplementedError(f"model {exp.model!r} is not ported yet")
+    precision = str(args.get("precision", "float32") or "float32")
+    gen = build_generator(exp.aero, precision, device)
+    gen.load_state_dict(generator_state_dict(
+        str(args.checkpoint_file), bool(args.get("continue_best", False))),
+        strict=True)
+    return gen

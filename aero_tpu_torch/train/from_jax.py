@@ -7,7 +7,10 @@ sources load with ``load_state_dict(..., strict=True)``:
   ``{"params", "batch_stats"}`` through ``state_dict_from_jax`` and the
   MelGAN discriminator's ``params`` through ``melgan_state_dict_from_jax``;
 - a reference-format ``checkpoint.th`` (``package["models"]["generator"]
-  ["state"]``), which ``save_reference_checkpoint`` also writes.
+  ["state"]``), which ``save_reference_checkpoint`` also writes. It loads
+  through a restricted unpickler (``load_torch_package``): tensors and
+  plain containers are rebuilt, every other pickled global (the model's
+  class) becomes an inert stub, and no code of the file runs.
 
 The mapping from JAX variable paths to reference keys is the port's own
 copy of ``aero_tpu/train/torch_import.py`` (``_aero_torch_key``,
@@ -26,7 +29,9 @@ Layout transforms (flax -> torch):
 
 from __future__ import annotations
 
+import pickle
 import re
+import types
 import typing as tp
 
 import numpy as np
@@ -208,18 +213,89 @@ def melgan_state_dict_from_jax(params_np, n_layers: int
     return _tensors(export_melgan_state(params_np, n_layers))
 
 
-def load_reference_checkpoint(path: str):
-    """(state_dict, kwargs) of the generator in a reference ``.th``.
+class _Stub:
+    """Stands in for a global that a reference package pickles and the
+    port does not trust (the model's class, for one): it takes any
+    arguments and state and runs nothing."""
 
-    Loads with ``weights_only=True``: tensors and plain containers only.
-    BatchNorm ``num_batches_tracked`` counters are dropped (the port's
-    BatchNorm keeps none).
+    def __init__(self, *args, **kwargs):
+        self.args, self.kwargs = args, kwargs
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+def _stub_class(module: str, name: str) -> type:
+    return type(name, (_Stub,), {"__module__": module, "__qualname__": name})
+
+
+def _trusted_globals() -> tp.Dict[str, tp.Any]:
+    """The globals torch's own ``weights_only`` loader allows: tensor and
+    storage rebuilds, dtypes, devices and plain containers."""
+    from torch import _weights_only_unpickler
+
+    return _weights_only_unpickler._get_allowed_globals()
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    """Resolves only the globals ``_trusted_globals`` names; every other
+    global becomes an inert ``_Stub`` subclass of the same name, so no
+    module is imported and no code of the file runs."""
+
+    def find_class(self, module, name):
+        trusted = _trusted_globals().get(f"{module}.{name}")
+        return trusted if trusted is not None else _stub_class(module, name)
+
+
+# ``torch.load``'s ``pickle_module``: its loader subclasses ``Unpickler``
+_RESTRICTED_PICKLE = types.SimpleNamespace(
+    __name__="aero_tpu_torch.restricted_pickle",
+    Unpickler=_RestrictedUnpickler,
+    load=lambda f, **kw: _RestrictedUnpickler(f, **kw).load())
+
+
+def _state_dict(entry) -> tp.Dict[str, torch.Tensor]:
+    """A model entry of a package (``{"state": sd, ...}`` or the state_dict
+    itself) as float32 tensors, without BatchNorm's ``num_batches_tracked``
+    (the port's BatchNorm keeps none)."""
+    state = entry.get("state", entry)
+    return {k: v.float() for k, v in state.items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def load_torch_package(path: str) -> tp.Dict[str, tp.Any]:
+    """A reference-format ``.th`` through the restricted unpickler.
+
+    Returns {"models": {name: state_dict}, "kwargs": {name: kwargs},
+    "param_keys": {name: the state_dict's keys in order}, "best_states":
+    {name: state_dict} or None, "optimizers": {name: optimizer state_dict},
+    "history": [...]}; tensors float32 on the CPU.
     """
-    package = torch.load(path, map_location="cpu", weights_only=True)
-    gen = package["models"]["generator"]
-    state = {k: v.float() for k, v in gen["state"].items()
-             if not k.endswith("num_batches_tracked")}
-    return state, dict(gen.get("kwargs") or {})
+    package = torch.load(path, map_location="cpu", weights_only=False,
+                         pickle_module=_RESTRICTED_PICKLE)
+    out = {"models": {}, "kwargs": {}, "param_keys": {},
+           "history": list(package.get("history") or []),
+           "optimizers": dict(package.get("optimizers") or {}),
+           "best_states": None}
+    for name, entry in (package.get("models") or {}).items():
+        out["models"][name] = _state_dict(entry)
+        out["kwargs"][name] = dict(entry.get("kwargs") or {})
+        out["param_keys"][name] = list(entry.get("state", entry).keys())
+    best = package.get("best_states") or {}
+    best = best.get("models", best) if isinstance(best, dict) else {}
+    if best:
+        out["best_states"] = {n: _state_dict(e) for n, e in best.items()}
+    return out
+
+
+def load_reference_checkpoint(path: str, load_best: bool = False):
+    """(state_dict, kwargs) of the generator in a reference ``.th``: its
+    best state where ``load_best`` and the package has one."""
+    package = load_torch_package(path)
+    states = package["models"]
+    if load_best and package["best_states"]:
+        states = package["best_states"]
+    return states["generator"], package["kwargs"].get("generator", {})
 
 
 def save_reference_checkpoint(path: str, model: torch.nn.Module,
@@ -234,3 +310,22 @@ def save_reference_checkpoint(path: str, model: torch.nn.Module,
         "optimizers": {}, "history": [], "best_states": {}, "args": {},
     }
     torch.save(package, path)
+
+
+# torch.optim.Adam's state_dict keys its per-parameter state by position in
+# ``parameters()``; torch's state_dict() and named_parameters() walk the
+# module tree alike (a module's parameters before its buffers), so the
+# state_dict's keys without the buffers are that order.
+_BUFFER_LEAVES = ("running_mean", "running_var", "num_batches_tracked",
+                  "weight_u")
+
+
+def torch_param_order(state_dict_keys: tp.Iterable[str]) -> tp.List[str]:
+    """Parameter keys of a reference state_dict in ``parameters()`` order.
+    ``weight_v`` is a buffer only beside a ``weight_u`` (spectral norm); a
+    weight-normed conv's ``weight_v`` is a parameter."""
+    keys = list(state_dict_keys)
+    spectral = {k[: -len("weight_u")] for k in keys if k.endswith("weight_u")}
+    return [k for k in keys if k.split(".")[-1] not in _BUFFER_LEAVES
+            and not (k.endswith("weight_v")
+                     and k[: -len("weight_v")] in spectral)]

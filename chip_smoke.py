@@ -74,7 +74,18 @@ prints its time:
    the bf16 tensor peak and the exponentials at the special-function
    units' rate (16 per SM and clock at the max SM clock); the LSTM's
    carries a note of its 200 dependent steps, the backward's one of its
-   two exponentials per pair.
+   two exponentials per pair;
+9. the Solver: ``main`` of ``python -m aero_tpu_torch.train``,
+   ``aero_tpu_torch.test`` and ``aero_tpu_torch.predict`` in this process
+   on 40 dummy files of 2.5 s: train 2 epochs (bfloat16, batch 16 x 2 s,
+   cross-validation on the test files every epoch, LSD at the end), resume
+   for a third, score the test set and predict a 12.3 s file from
+   checkpoint.atpu. It raises unless every train step launched 4 forward
+   and 8 backward attention kernels and every valid or eval forward 4, all
+   on the tensor cores, the history and LSD are finite, the resume ran
+   epoch 3 alone, the samples are written and the prediction is 4x its
+   input; it prints the epoch and median step times, the valid, loss and
+   eval times a file, checkpoint save and load times and peak memory.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and the result JSON.
@@ -805,16 +816,10 @@ def training(attention, smi):
                 for n, m in models.items()}
     before = {n: [p.detach().clone() for p in m.parameters()]
               for n, m in models.items()}
-    attention.local_attention.launches = 0
-    attention.local_attention.mma_launches = 0
-    attention.local_attention.backward_launches = 0
-    attention.local_attention.backward_mma_launches = 0
+    zero_attention_counts(attention)
     metrics = step(lr, hr)
     torch.cuda.synchronize()
-    fn = attention.local_attention
-    launches = {"forward": fn.launches, "forward_mma": fn.mma_launches,
-                "backward": fn.backward_launches,
-                "backward_mma": fn.backward_mma_launches}
+    launches = attention_counts(attention)
     # 4 attention calls forward and 4 backward, each backward 2 kernels
     log(f"train step B={BATCH} x 2 s bf16 ({n_params} params): metrics "
         + ", ".join(f"{n} {v:.5f}" for n, v in metrics.items())
@@ -851,6 +856,296 @@ def training(attention, smi):
         f"throughput {BATCH * 2 / med:.1f} audio-s/s, peak memory "
         f"{peak:.2f} GiB [{smi}]")
     device_profile(lambda: step(lr, hr), f"train step B={BATCH}", smi)
+    return launches
+
+
+@contextlib.contextmanager
+def wrapped(owner, name, make):
+    """``owner.name`` replaced by ``make(original)`` within the block."""
+    original = getattr(owner, name)
+    setattr(owner, name, make(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+ATTENTION_COUNTS = {"forward": "launches", "forward_mma": "mma_launches",
+                    "backward": "backward_launches",
+                    "backward_mma": "backward_mma_launches"}
+
+
+def attention_counts(attention):
+    return {k: getattr(attention.local_attention, name)
+            for k, name in ATTENTION_COUNTS.items()}
+
+
+def zero_attention_counts(attention):
+    for name in ATTENTION_COUNTS.values():
+        setattr(attention.local_attention, name, 0)
+
+
+def recorder(attention, calls, sync=False, tag=None):
+    """``make`` for ``wrapped``: each call of the wrapped function appends
+    (wall seconds, its attention kernel launches, ``tag(args)`` taken at the
+    call, or None) to ``calls``. Launches are the counters' difference across the
+    call, so recorders nest."""
+    def make(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            before = attention_counts(attention)
+            label = tag(args) if tag else None
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            after = attention_counts(attention)
+            calls.append((time.perf_counter() - t0,
+                          {k: after[k] - before[k] for k in after}, label))
+            return out
+        return call
+    return make
+
+
+SOLVER_FILES, SOLVER_FILE_S = 40, 2.5
+# one fused-Adam update from the restored state against torch's plain
+# single-tensor Adam on the CPU, same state and gradient: of max |update|,
+# beyond one float32 ulp of each updated parameter
+ADAM_UPDATE_TOL = 1e-4
+
+
+def adam_states(train_step):
+    """{optimizer: [(parameter, {step, exp_avg, exp_avg_sq} cloned)]} of
+    a ``TrainStep``'s Adams, in parameter order."""
+    return {name: [(p, {k: v.clone() for k, v in opt.state[p].items()})
+                   for g in opt.param_groups for p in g["params"]
+                   if p in opt.state]
+            for name, opt in (("generator", train_step.gen_opt),
+                              ("discriminators", train_step.disc_opt))
+            if opt is not None}
+
+
+def check_restored_adam(saved, restored):
+    """Raise unless every parameter's restored Adam state equals the state
+    saved at the end of the first run bit for bit, lies as the fused Adam
+    needs it (step a float32 scalar on the parameter's device, moments in
+    the parameter's dtype, device and strides), and gives the same update
+    under the fused Adam as under the plain one. Returns the worst gap of
+    the updated parameters (of max |update|) and the number of parameters
+    checked."""
+    worst, n = 0.0, 0
+    for name, entries in restored.items():
+        if len(entries) != len(saved[name]) or not entries:
+            raise AssertionError(f"{name} Adam: {len(entries)} restored "
+                                 f"states, {len(saved[name])} saved")
+        for (p, st), (_, want) in zip(entries, saved[name]):
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                if not torch.equal(st[key].cpu(), want[key].cpu()):
+                    raise AssertionError(f"{name} Adam {key} differs from "
+                                         "the saved state")
+            if st["step"].dtype != torch.float32 or \
+                    st["step"].device != p.device or st["step"].dim():
+                raise AssertionError(f"{name} Adam step {st['step']!r}")
+            for key in ("exp_avg", "exp_avg_sq"):
+                m = st[key]
+                if (m.dtype, m.device, m.stride()) != (
+                        p.dtype, p.device, p.stride()):
+                    raise AssertionError(f"{name} Adam {key} layout")
+            n += 1
+        params = [p for p, _ in entries]
+        gen = torch.Generator().manual_seed(5)
+        grads = [1e-2 * torch.randn(p.shape, generator=gen) for p in params]
+        hyper = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+        updated = []
+        for device, extra in ((params[0].device, {"fused": True}),
+                              ("cpu", {"foreach": False})):
+            ps = [torch.nn.Parameter(p.detach().to(device, copy=True))
+                  for p in params]
+            opt = torch.optim.Adam(ps, **hyper, **extra)
+            for q, (_, st), g in zip(ps, entries, grads):
+                q.grad = torch.empty_like(q).copy_(g)  # q's strides
+                opt.state[q] = {k: v.to(device, copy=True)
+                                for k, v in st.items()}
+            opt.step()
+            updated.append([q.detach().cpu() for q in ps])
+        top = max(float((b.double() - p.detach().cpu().double()).abs().max())
+                  for b, p in zip(updated[1], params))
+        for a, b in zip(*updated):
+            # each side rounds p + update to float32: one ulp of the result
+            # apart is rounding, not a different update
+            ulp = (torch.nextafter(b.abs(), torch.tensor(math.inf))
+                   - b.abs()).double()
+            gap = (a.double() - b.double()).abs()
+            if bool((gap > ADAM_UPDATE_TOL * top + ulp).any()):
+                raise AssertionError(
+                    f"{name}: fused Adam update from the restored state off "
+                    f"by {float(gap.max()):.3e} of {top:.3e}")
+            worst = max(worst, float(gap.max()) / top)
+    return worst, n
+
+
+def solver(attention, smi):
+    """Phase 9: the Solver slice at the canonical width through its CLIs,
+    in this process (``main`` of ``python -m aero_tpu_torch.train``,
+    ``aero_tpu_torch.test`` and ``aero_tpu_torch.predict``): a dummy
+    dataset of 40 files of 2.5-2.75 s; train 2 epochs at batch 16 x 2 s in
+    bfloat16 with cross-validation on the test files every epoch and the
+    evaluation (LSD) at the end; resume for a third epoch; the test CLI
+    and the predict CLI from checkpoint.atpu. Returns the attention kernel
+    launches of the whole phase."""
+    from aero_tpu_torch import predict
+    from aero_tpu_torch import test as test_cli
+    from aero_tpu_torch.data.prep import make_dummy_dataset
+    from aero_tpu_torch.models.aero import Aero
+    from aero_tpu_torch.train import __main__ as train_cli
+    from aero_tpu_torch.train import checkpoint
+    from aero_tpu_torch.train import solver as solver_mod
+    from aero_tpu_torch.train.solver import Solver
+    from aero_tpu_torch.train.train_step import TrainStep
+
+    steps, forwards, epochs, valids, losses, scores, evals, saves, loads = (
+        [] for _ in range(9))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as st:
+        os.chdir(tmp)
+        st.callback(os.chdir, cwd)
+        make_dummy_dataset(os.path.join(tmp, "egs"), n_files=SOLVER_FILES,
+                           duration=SOLVER_FILE_S, seed=0)
+        for owner, name, calls, sync, tag in (
+                (TrainStep, "__call__", steps, True, None),
+                # the generator's mode at the call: train or eval
+                (Aero, "forward", forwards, False, lambda a: a[0].training),
+                (Solver, "_run_one_epoch", epochs, True, lambda a: a[1]),
+                (Solver, "_valid_on_test_data", valids, True, None),
+                (Solver, "valid_losses", losses, True, None),
+                (solver_mod, "evaluate_on_saved_data", scores, True, None),
+                (test_cli, "evaluate", evals, True, None),
+                (checkpoint, "save_package", saves, True, None),
+                (checkpoint, "load_package", loads, True, None)):
+            st.enter_context(wrapped(owner, name, recorder(
+                attention, calls, sync, tag)))
+        cli = ["experiment=aero_4-16_512_64", "dset=4-16",
+               "precision=bfloat16", "device=cuda", "visqol=false",
+               f"dset.train={tmp}/egs/tr", f"dset.valid={tmp}/egs/val",
+               f"dset.test={tmp}/egs/val"]
+        train = cli + ["cross_valid=true", "cross_valid_every=1",
+                       "eval_every=2"]
+        run_dir = os.path.join(tmp, "outputs", "4-16", "aero-nfft=512-hl=64")
+        # the Adam states at the end of the first run, and as the resumed
+        # run restored them from checkpoint.atpu (before its first step)
+        adam_saved, adam_restored = [], []
+
+        def after(calls, method):
+            def make(fn):
+                @functools.wraps(fn)
+                def call(self, *args, **kwargs):
+                    out = fn(self, *args, **kwargs)
+                    states = adam_states(self.train_step)
+                    if any(states.values()):
+                        calls.append(states)
+                    return out
+                return call
+            st.enter_context(wrapped(Solver, method, make))
+
+        after(adam_saved, "train")
+        after(adam_restored, "_reset")
+
+        zero_attention_counts(attention)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        history = train_cli.main(train + ["epochs=2"])
+        t_train = time.perf_counter() - t0
+        first_epochs = [e[2] for e in epochs]
+        n_first = len(steps)
+        history = train_cli.main(train + ["epochs=3"])
+        resumed = [e[2] for e in epochs][len(first_epochs):]
+        if len(adam_saved) != 2 or len(adam_restored) != 1:
+            raise AssertionError(f"Adam states: {len(adam_saved)} saved, "
+                                 f"{len(adam_restored)} restored")
+        adam_gap, adam_n = check_restored_adam(adam_saved[0],
+                                               adam_restored[0])
+        del adam_saved[:], adam_restored[:]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_valid_fwd = sum(not c[2] for c in forwards)
+        n_train_cli_fwd = len(forwards)
+        results = test_cli.main(cli)
+        n_test_fwd = len(forwards) - n_train_cli_fwd
+        wav = os.path.join(tmp, "chirp12.wav")
+        n_in = write_test_wav(wav, 12.3)
+        out = predict.main(cli + [f"+filename={wav}",
+                                  f"+output={tmp}/predicted"])
+        launches = attention_counts(attention)
+        with open(os.path.join(run_dir, "history.json")) as f:
+            on_disk = json.load(f)
+        samples = sorted(os.listdir(os.path.join(run_dir, "samples")))
+        best = os.path.exists(os.path.join(run_dir, "best.atpu"))
+
+    train_fwd = [c for c in forwards if c[2]]
+    eval_fwd = [c for c in forwards if not c[2]]
+    step_s = [c[0] for c in steps]
+    log(f"solver: train CLI 2 epochs {t_train:.1f} s, {n_first} steps of "
+        f"B=16 x 2 s bf16; epochs {first_epochs} then resumed {resumed}; "
+        f"history {len(history)} entries ({len(on_disk)} on disk), best.atpu "
+        f"{best}, {len(samples)} sample files")
+    log(f"solver: epoch time {', '.join(f'{e[0]:.2f}' for e in epochs)} s; "
+        f"median step {statistics.median(step_s) * 1e3:.1f} ms (of "
+        f"{len(step_s)}: {', '.join(f'{t * 1e3:.0f}' for t in step_s)}); "
+        f"peak memory {peak:.2f} GiB [{smi}]")
+    def per_file(calls):
+        return ", ".join(f"{c[0]:.2f} s ({c[0] / SOLVER_FILES * 1e3:.1f} ms "
+                         "a file)" for c in calls)
+
+    log(f"solver: {SOLVER_FILES} files: valid on the test files (with "
+        f"enhance on epochs 2 and 3) {per_file(valids)}; scoring the saved "
+        f"files {per_file(scores)}; test CLI evaluate {per_file(evals)}; "
+        f"valid losses alone (of the valid files above) median "
+        f"{statistics.median(c[0] for c in losses) * 1e3:.1f} ms a file "
+        f"({len(losses)} files); "
+        f"eval-mode forwards: train CLI {n_valid_fwd}, test CLI "
+        f"{n_test_fwd}, all {len(eval_fwd)}; train forwards "
+        f"{len(train_fwd)} [{smi}]")
+    log(f"solver: checkpoint save {', '.join(f'{c[0]:.2f}' for c in saves)} "
+        f"s, load {', '.join(f'{c[0]:.2f}' for c in loads)} s; resumed Adam "
+        f"state of {adam_n} parameters equal to the saved one, fused update "
+        f"from it vs plain Adam {adam_gap:.2e} of max |update| (tolerance "
+        f"{ADAM_UPDATE_TOL:g} of it plus one float32 ulp of the parameter)")
+    log(f"solver: test CLI {results}; predict CLI {n_in} -> "
+        f"{out['out_samples']} samples, realtime factor "
+        f"{out['realtime_factor']:.1f}x; attention launches {launches}")
+
+    want_step = {"forward": 4, "forward_mma": 4, "backward": 8,
+                 "backward_mma": 8}
+    bad = [c[1] for c in steps if c[1] != want_step]
+    if bad or len(steps) != 15:
+        raise AssertionError(f"train steps: {len(steps)} (want 15), launches "
+                             f"per step not {want_step}: {bad[:3]}")
+    want_fwd = {"forward": 4, "forward_mma": 4, "backward": 0,
+                "backward_mma": 0}
+    bad = [c[1] for c in eval_fwd if c[1] != want_fwd]
+    if bad or n_valid_fwd != 3 * SOLVER_FILES or n_test_fwd != SOLVER_FILES:
+        raise AssertionError(f"eval-mode forwards: train CLI {n_valid_fwd} "
+                             f"(want {3 * SOLVER_FILES}), test CLI "
+                             f"{n_test_fwd} (want {SOLVER_FILES}); launches "
+                             f"not {want_fwd}: {bad[:3]}")
+    numbers = [v for h in history for v in h.values()
+               if isinstance(v, (int, float))]
+    if not (len(history) == len(on_disk) == 3 and all(
+            math.isfinite(v) for v in numbers) and math.isfinite(
+            results["lsd"]) and results["lsd"] > 0):
+        raise AssertionError(f"history or metrics wrong: {history}, "
+                             f"{results}")
+    if first_epochs != [0, 1] or resumed != [2] or not best:
+        raise AssertionError(f"epochs {first_epochs}, resumed {resumed} "
+                             f"(want [2]), best.atpu {best}")
+    stems = {f.rsplit("_", 1)[0] for f in samples if f.endswith("_pr.wav")}
+    if len(stems) != SOLVER_FILES or not all(
+            f"{s}_{k}" in samples for s in stems
+            for k in ("lr.wav", "hr.wav", "pr.wav", "pr_spec.png")):
+        raise AssertionError(f"sample triples missing: {samples[:8]}")
+    if out["out_samples"] != 4 * n_in:
+        raise AssertionError("predict output is not 4x the input")
     return launches
 
 
@@ -1208,6 +1503,8 @@ def main():
     with phase("8 numbers"):
         nums = attention_numbers(attention, smi)
         opt = optin_numbers(attention, lstm, ftb, smi)
+    with phase("9 solver"):
+        solver_launches = solver(attention, smi)
 
     def per_step(key):  # 2 calls at each train shape per step
         return 2 * (nums["train_enc2"][key] + nums["train_enc3"][key])
@@ -1233,6 +1530,8 @@ def main():
               422, train_launches["backward_mma"], bwd_abs, bwd_rel)]
     kernels[1]["bound_note"] = BWD_BOUND_NOTE
     kernels[0]["launches_serving_forward"] = serve_launches["attention_mma"]
+    kernels[0]["launches_solver"] = solver_launches["forward_mma"]
+    kernels[1]["launches_solver"] = solver_launches["backward_mma"]
     kernels += [
         optin_entry("local_attention_banded_fwd", "local_attention_mma.cu",
                     "aero_tpu/ops/attention.py:180", optin_launches["banded"],
