@@ -3,12 +3,15 @@
 A port of ``aero_tpu`` (JAX/Pallas on TPU), which stays the reference it is
 tested against. Imports ``torch`` and never ``jax`` or ``aero_tpu``.
 
-- ``ops``    — STFT/iSTFT, LocalState attention (plain versions and the CUDA
+- ``ops``    — STFT/iSTFT, the mel spectrogram, the sinc resample of a
+               tensor, LocalState attention (plain versions and the CUDA
                kernels' wrappers, forward and backward), the LSTM recurrence
                and FTB tail kernels, the nvcc build of ``csrc/``.
-- ``models`` — the Aero generator, its building blocks, the MelGAN
-               discriminator, seeded init, factory.
-- ``losses`` — the multi-resolution STFT loss and the MelGAN losses.
+- ``models`` — the Aero and Seanet generators, Aero's building blocks, the
+               MelGAN and HiFi-GAN (MPD, spectral-normed MSD)
+               discriminators, seeded init, factory.
+- ``losses`` — the multi-resolution STFT loss, the MelGAN losses and the
+               HiFi-GAN LS-GAN and feature losses.
 - ``train``  — the GAN train step, the Solver (epoch loop, validation,
                best states, evaluation schedule), checkpoints (the JAX
                package's ``.atpu`` in msgpack, reference ``.th`` through a

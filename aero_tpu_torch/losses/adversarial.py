@@ -1,8 +1,11 @@
-"""MelGAN adversarial losses (port of ``aero_tpu/losses/adversarial.py:15-65``).
+"""Adversarial losses: MelGAN hinge and feature matching, HiFi-GAN LS-GAN
+and feature matching (port of ``aero_tpu/losses/adversarial.py:15-126``,
+the unmasked forms).
 
-Each argument ``disc_*`` is the discriminator's output: one list of
-feature maps per scale, the logits last. The hinge terms and the feature
-L1 are taken in float32.
+A MelGAN argument ``disc_*`` is the discriminator's output: one list of
+feature maps per scale, the logits last. A HiFi argument is one entry per
+sub-discriminator: its flattened logits or its list of feature maps. Every
+term is taken in float32.
 """
 
 from __future__ import annotations
@@ -37,3 +40,32 @@ def melgan_generator_losses(disc_fake, disc_real, n_layers: int, num_d: int):
         adversarial_loss = adversarial_loss + torch.mean(
             F.relu(1 - scale[-1].float()))
     return adversarial_loss, features_loss
+
+
+def hifi_feature_loss(fmap_r, fmap_g):
+    """Mean L1 over every feature map of every sub-discriminator, divided
+    by the number of maps (``adversarial.py:98-109``). Nothing is
+    detached here: a caller that holds the real maps' graph detaches them."""
+    loss, total = 0.0, 0
+    for dr, dg in zip(fmap_r, fmap_g):
+        for r, g in zip(dr, dg):
+            loss = loss + torch.mean(torch.abs(r.float() - g.float()))
+            total += 1
+    return loss / total
+
+
+def hifi_discriminator_loss(disc_real_outputs, disc_generated_outputs):
+    """LS-GAN: mean((1 - real)^2) + mean(fake^2) per sub-discriminator."""
+    loss = 0.0
+    for dr, dg in zip(disc_real_outputs, disc_generated_outputs):
+        loss = loss + torch.mean((1 - dr.float()) ** 2) + torch.mean(
+            dg.float() ** 2)
+    return loss
+
+
+def hifi_generator_loss(disc_outputs):
+    """LS-GAN: mean((1 - fake)^2) per sub-discriminator."""
+    loss = 0.0
+    for dg in disc_outputs:
+        loss = loss + torch.mean((1 - dg.float()) ** 2)
+    return loss

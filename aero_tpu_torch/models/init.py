@@ -1,5 +1,6 @@
-"""Seeded initialisation of the port's Aero and MelGAN discriminator (port of
-``aero_tpu/models/init.py`` and the inits of ``aero_tpu/models/discriminators.py``).
+"""Seeded initialisation of the port's networks (port of
+``aero_tpu/models/init.py`` and the inits of ``aero_tpu/models/discriminators.py``
+and ``aero_tpu/models/seanet.py``).
 
 Every draw goes through one explicit ``torch.Generator``, so a seed gives the
 same weights on any device. The distributions are PyTorch's defaults, as the
@@ -16,9 +17,13 @@ JAX package reproduces them:
 - LocalState ``query_decay``: weight times 0.01, bias -2;
 - then the Aero rescale: every Conv1d weight and bias divided by
   sqrt(std(weight) / reference) (``init.py:96``, ``train/build.py:45-47``);
-- MelGAN's weight-normed convs: ``v`` and the bias as a Conv above (fan_in
-  in/groups * kernel), ``g = ||v||`` per output channel, so that the
-  initial weight is ``v`` (``discriminators.py:87-127``).
+- the weight-normed convs of the MelGAN, HiFi and Seanet: ``v`` and the
+  bias as a Conv or ConvTranspose above, ``g = ||v||`` over the axes the
+  norm takes, so that the initial weight is ``v``
+  (``discriminators.py:87-193``);
+- HiFi's spectral-normed convs: the weight and bias as a Conv above, the
+  power iteration's ``u`` a standard normal draw, not normalised
+  (``discriminators.py:218-242``).
 """
 
 from __future__ import annotations
@@ -81,15 +86,25 @@ def init_aero_(model: nn.Module, generator: torch.Generator,
 
 
 @torch.no_grad()
-def init_melgan_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Initialise every weight-normed conv of ``model`` in place from
-    ``generator``; returns it."""
+def init_normed_convs_(model: nn.Module,
+                       generator: torch.Generator) -> nn.Module:
+    """Initialise every weight- and spectral-normed conv of ``model`` in
+    place from ``generator``; returns it. The MelGAN, the HiFi
+    discriminators and Seanet are made of nothing else."""
     for module in model.modules():
-        if isinstance(module, D.WNConv1d):
+        if isinstance(module, D._WeightNorm):
             v = module.weight_v
+            # torch's fan_in: v[0] is [in/groups, *k] of a conv and
+            # [out, k] of a transposed conv
             bound = 1.0 / math.sqrt(v[0].numel())
             v.uniform_(-bound, bound, generator=generator)
             module.bias.uniform_(-bound, bound, generator=generator)
-            module.weight_g.copy_(v.pow(2).sum(dim=(1, 2), keepdim=True)
-                                  .sqrt())
+            module.weight_g.copy_(v.pow(2).sum(
+                dim=tuple(range(1, v.dim())), keepdim=True).sqrt())
+        elif isinstance(module, D.SNConv1d):
+            w = module.weight_orig
+            bound = 1.0 / math.sqrt(w[0].numel())
+            w.uniform_(-bound, bound, generator=generator)
+            module.bias.uniform_(-bound, bound, generator=generator)
+            module.weight_u.normal_(0.0, 1.0, generator=generator)
     return model

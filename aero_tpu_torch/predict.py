@@ -6,6 +6,8 @@ Usage::
         +filename=<in.wav> +output=<dir> [checkpoint_file=<.atpu or .th>] \\
         [continue_best=true] [precision=bfloat16] [device=cuda|cpu]
 
+(``experiment=seanet_4-16`` serves Seanet the same way.)
+
 Changes into the run directory ``outputs/<dset>/<experiment>/`` (as the
 train CLI does) and loads the generator from ``checkpoint_file`` there
 (default ``checkpoint.atpu``; an ``.atpu`` or a reference-format ``.th``;
@@ -101,8 +103,6 @@ def main(argv=None) -> dict:
     args = load_config(str(CONF_DIR), "main_config",
                        list(sys.argv[1:] if argv is None else argv))
     exp = args.experiment
-    if exp.model != "aero":
-        raise NotImplementedError(f"model {exp.model!r} is not ported")
     if exp.get("upsample", False):
         raise NotImplementedError("upsample=true datasets are not ported")
     device = resolve_device(args.get("device"))

@@ -24,15 +24,13 @@ def segment_shapes(exp) -> tp.Tuple[tp.Tuple[int, ...], tp.Tuple[int, ...]]:
 
 def build_models(args, device="cuda", seed: int = 0
                  ) -> tp.Dict[str, tp.Any]:
-    """{"generator": Aero, <discriminator name>: module, ...} on
+    """{"generator": Aero or Seanet, <discriminator name>: module, ...} on
     ``device`` in ``args.precision``, from seeds ``seed`` (generator) and
     ``seed + 1`` (discriminators)."""
     exp = args.experiment
-    if exp.model != "aero":
-        raise NotImplementedError(f"model {exp.model!r} is not ported yet")
     precision = str(args.get("precision", "float32") or "float32")
-    models = {"generator": build_generator(exp.aero, precision, device,
-                                           seed)}
+    models = {"generator": build_generator(exp[exp.model], precision, device,
+                                           seed, model=exp.model)}
     models.update(build_discriminators(exp, precision, device, seed + 1))
     return models
 
@@ -45,10 +43,9 @@ def load_generator_state(args, device="cuda"):
     from aero_tpu_torch.train.checkpoint import generator_state_dict
 
     exp = args.experiment
-    if exp.model != "aero":
-        raise NotImplementedError(f"model {exp.model!r} is not ported yet")
     precision = str(args.get("precision", "float32") or "float32")
-    gen = build_generator(exp.aero, precision, device)
+    gen = build_generator(exp[exp.model], precision, device,
+                          model=exp.model)
     gen.load_state_dict(generator_state_dict(
         str(args.checkpoint_file), bool(args.get("continue_best", False))),
         strict=True)

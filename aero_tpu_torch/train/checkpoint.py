@@ -4,8 +4,10 @@
 
 An ``.atpu`` is one msgpack map, written atomically (tmp + rename)::
 
-  {"models":      {"generator": {"params", "batch_stats"},
-                   "msd_melgan": {"params"}},
+  {"models":      {"generator": {"params", "batch_stats"} (Seanet:
+                                 {"params"}),
+                   "msd_melgan": {"params"}, "mpd": {"params"},
+                   "msd_hifi": {"params", "spectral_stats"}},
    "optimizers":  {"optimizer": adam, "disc_optimizer": adam},
    "history":     JSON string of the per-epoch metric dicts,
    "best_states": {name: variables} or {},
@@ -18,10 +20,12 @@ flax's msgpack extension: ``ExtType(1, packb((shape, dtype name, C-order
 bytes)))``; ``ExtType(3)`` is a numpy scalar, ``ExtType(2)`` a complex.
 
 The trees are the JAX variables, so the port maps them to and from its
-state_dicts: ``from_jax.export_aero_state`` / ``export_melgan_state`` one
-way, ``aero_variables`` / ``melgan_params`` (below) the other. The Adam
-moments take the same map as their weights; optax's ``count`` is torch's
-``step`` (both count the updates done and bias-correct with it).
+state_dicts: ``from_jax.export_{aero,seanet,melgan,hifi}_state`` one way,
+``aero_variables`` / ``seanet_variables`` / ``melgan_params`` /
+``hifi_variables`` (below) the other. The Adam moments take the same map
+as their weights; optax's ``count`` is torch's ``step`` (both count the
+updates done and bias-correct with it). The spectral-norm ``u`` is state,
+not a parameter: it has no moments.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ import numpy as np
 import torch
 
 from aero_tpu_torch.train.from_jax import (
-    export_aero_state, export_melgan_state, load_reference_checkpoint)
+    export_aero_state, export_hifi_state, export_melgan_state,
+    export_seanet_state, load_reference_checkpoint, seanet_modules)
 
 SERIALIZE_KEY_MODELS = "models"
 SERIALIZE_KEY_OPTIMIZERS = "optimizers"
@@ -272,6 +277,52 @@ def melgan_params(state_dict) -> dict:
     return out
 
 
+_HIFI_LEAF = {"weight_v": ("params", "v"), "weight_g": ("params", "g"),
+              "weight_orig": ("params", "kernel"), "bias": ("params", "bias"),
+              "weight_u": ("spectral_stats", "u")}
+
+
+def hifi_variables(state_dict) -> dict:
+    """Reference HiFi MPD or MSD state_dict -> the JAX variables
+    ``{"params"[, "spectral_stats"]}``; the inverse of
+    ``from_jax.export_hifi_state``."""
+    out: dict = {}
+    for key, value in state_dict.items():
+        m = re.fullmatch(r"discriminators\.(\d+)\.(?:convs\.(\d+)|conv_post)"
+                         r"\.(weight_v|weight_g|weight_orig|weight_u|bias)", key)
+        if not m:
+            raise KeyError(f"unmapped reference key: {key}")
+        disc, conv, leaf = m.groups()
+        coll, name = _HIFI_LEAF[leaf]
+        v = _numpy(value)
+        v = _conv_to_flax(v) if leaf in ("weight_v", "weight_orig") else \
+            v.reshape(-1)
+        _put(out.setdefault(coll, {}), (
+            f"discriminators_{disc}",
+            "conv_post" if conv is None else f"convs_{conv}", name),
+            np.ascontiguousarray(v))
+    return out
+
+
+def seanet_variables(state_dict) -> dict:
+    """Reference Seanet state_dict -> the JAX variables ``{"params"}``; the
+    inverse of ``from_jax.export_seanet_state``."""
+    keys = set(state_dict)
+    n_ratios = max(int(k.split(".")[1]) for k in keys
+                   if k.startswith("encoder.")) - 1
+    n_res = len({k.split(".")[2] for k in keys
+                 if re.fullmatch(r"encoder\.1\.\d+\.shortcut\.bias", k)})
+    params: dict = {}
+    for path, prefix, transposed in seanet_modules(n_ratios, n_res):
+        v = _numpy(state_dict[f"{prefix}.weight_v"])
+        _put(params, path + ("v",), np.ascontiguousarray(np.transpose(
+            v, (2, 0, 1) if transposed else (2, 1, 0))))
+        _put(params, path + ("g",),
+             _numpy(state_dict[f"{prefix}.weight_g"]).reshape(-1))
+        _put(params, path + ("bias",), _numpy(state_dict[f"{prefix}.bias"]))
+    return {"params": params}
+
+
 # --------------------------------------------------------------------------
 # Models and Adam state <-> the package
 
@@ -280,15 +331,23 @@ def _export(name: str, model: torch.nn.Module, variables) -> tp.Dict[
         str, np.ndarray]:
     """JAX variables of network ``name`` -> its reference state_dict."""
     if name == "generator":
+        if "enc_in_conv" in variables["params"]:
+            return export_seanet_state(variables)
         return export_aero_state(variables)
-    return export_melgan_state(variables["params"], model.n_layers)
+    if name == "msd_melgan":
+        return export_melgan_state(variables["params"], model.n_layers)
+    return export_hifi_state(variables)
 
 
 def _import(name: str, state_dict) -> dict:
     """Reference state_dict of network ``name`` -> its JAX variables."""
     if name == "generator":
+        if "encoder.0.1.weight_v" in state_dict:  # Seanet's first conv
+            return seanet_variables(state_dict)
         return aero_variables(state_dict)
-    return {"params": melgan_params(state_dict)}
+    if name == "msd_melgan":
+        return {"params": melgan_params(state_dict)}
+    return hifi_variables(state_dict)
 
 
 def model_variables(models) -> tp.Dict[str, dict]:
@@ -384,8 +443,8 @@ def optimizer_groups(models, train_step):
                       list(models["generator"].named_parameters()))})]
     if train_step.disc_opt is not None:
         out.append(("disc_optimizer", train_step.disc_opt, {
-            n: (models[n], list(models[n].named_parameters()))
-            for n in train_step.lc.disc_names}))
+            n: (m, list(m.named_parameters()))
+            for n, m in train_step.disc_models.items()}))
     return out
 
 
@@ -445,4 +504,4 @@ def generator_state_dict(path: str, load_best: bool = False
     src = best if load_best and best.get("generator") else \
         package[SERIALIZE_KEY_MODELS]
     return {k: torch.from_numpy(np.array(a, np.float32))
-            for k, a in export_aero_state(src["generator"]).items()}
+            for k, a in _export("generator", None, src["generator"]).items()}

@@ -3,9 +3,11 @@
 The port's submodule names are the reference state_dict keys, so two
 sources load with ``load_state_dict(..., strict=True)``:
 
-- a JAX variables tree of numpy arrays: the generator's
-  ``{"params", "batch_stats"}`` through ``state_dict_from_jax`` and the
-  MelGAN discriminator's ``params`` through ``melgan_state_dict_from_jax``;
+- a JAX variables tree of numpy arrays: Aero's ``{"params",
+  "batch_stats"}`` through ``state_dict_from_jax``, Seanet's through
+  ``seanet_state_dict_from_jax``, the MelGAN discriminator's ``params``
+  through ``melgan_state_dict_from_jax`` and the HiFi MPD's and MSD's
+  ``{"params"[, "spectral_stats"]}`` through ``hifi_state_dict_from_jax``;
 - a reference-format ``checkpoint.th`` (``package["models"]["generator"]
   ["state"]``), which ``save_reference_checkpoint`` also writes. It loads
   through a restricted unpickler (``load_torch_package``): tensors and
@@ -14,16 +16,19 @@ sources load with ``load_state_dict(..., strict=True)``:
 
 The mapping from JAX variable paths to reference keys is the port's own
 copy of ``aero_tpu/train/torch_import.py`` (``_aero_torch_key``,
-``export_aero_state``, ``melgan_torch_prefix``), written in the one
-direction the port needs; it uses numpy only.
+``export_aero_state``, ``melgan_torch_prefix``, ``import_seanet_state``
+inverted), and the HiFi discriminators' map; it uses numpy only.
 
 Layout transforms (flax -> torch):
 - Conv{1,2}d kernel (*k, in, out)      -> weight [out, in, *k]
 - ConvTranspose kernel (k, in, out)    -> weight [in, out, k, 1]
 - Dense kernel [in, out]               -> weight [out, in]
 - LSTM w_ih/w_hh [in, 4H]              -> weight [4H, in]
-- weight norm v (k, in, out), g [out]  -> weight_v [out, in, k], weight_g
-  [out, 1, 1]
+- weight norm v (*k, in, out), g [out] -> weight_v [out, in, *k],
+  weight_g [out, 1, ...]; a transposed conv's v (k, in, out), g [in] ->
+  [in, out, k], [in, 1, 1]
+- spectral norm kernel (k, in, out), u -> weight_orig [out, in, k],
+  weight_u
 - BatchNorm scale/bias/mean/var        -> weight/bias/running_mean/var
 """
 
@@ -197,6 +202,81 @@ def export_melgan_state(params, n_layers: int) -> tp.Dict[str, np.ndarray]:
     return out
 
 
+_HIFI_LEAVES = {"v": "weight_v", "g": "weight_g", "kernel": "weight_orig",
+                "bias": "bias", "u": "weight_u"}
+
+
+def _dotted(seg: str) -> str:  # discriminators_0 -> discriminators.0
+    return re.sub(r"_(\d+)$", r".\1", seg)
+
+
+def export_hifi_state(variables) -> tp.Dict[str, np.ndarray]:
+    """JAX HiFi MPD or MSD variables ``{"params"[, "spectral_stats"]}``
+    (``discriminators_i/convs_j|conv_post/{v, g, bias}``, ``kernel`` on a
+    spectral-normed conv, its ``u`` in ``spectral_stats``) -> the
+    reference state_dict (``weight_v``/``weight_g``/``bias``,
+    ``weight_orig``/``weight_u``). Linear, so it carries gradients and
+    Adam moments too."""
+    out = {}
+    params = variables.get("params", {})
+    for coll in ("params", "spectral_stats"):
+        for (disc, conv, leaf), value in _walk(variables.get(coll, {})):
+            key = f"{_dotted(disc)}.{_dotted(conv)}.{_HIFI_LEAVES[leaf]}"
+            if leaf in ("v", "kernel"):
+                value = _conv(value)
+            elif leaf == "g":
+                ndim = np.ndim(params[disc][conv]["v"])
+                value = np.asarray(value).reshape((-1,) + (1,) * (ndim - 1))
+            out[key] = np.asarray(value)
+    return out
+
+
+def seanet_modules(n_ratios: int, n_res: int):
+    """(JAX module path, reference key prefix, transposed) of every
+    weight-normed conv of a Seanet with ``n_ratios`` strided stages of
+    ``n_res`` residual blocks (``aero_tpu/train/torch_import.py:238-303``)."""
+    def res(flax, ref):
+        return [((flax, sub), f"{ref}.{key}", False) for sub, key in (
+            ("block_conv1", "block.2"), ("block_conv2", "block.4"),
+            ("shortcut", "shortcut"))]
+
+    out = [(("enc_in_conv",), "encoder.0.1", False)]
+    for i in range(n_ratios):
+        for j in range(n_res):
+            out += res(f"enc_{i}_res_{j}", f"encoder.{i + 1}.{j}")
+        out.append(((f"enc_{i}_conv",), f"encoder.{i + 1}.{n_res + 1}",
+                    False))
+    out.append((("enc_out_conv",), f"encoder.{n_ratios + 1}.2", False))
+    out.append((("dec_in_conv",), "decoder.0.2", False))
+    for i in range(n_ratios):
+        out.append(((f"dec_{i}_convtr",), f"decoder.{i + 1}.1", True))
+        for j in range(n_res):
+            out += res(f"dec_{i}_res_{j}", f"decoder.{i + 1}.{j + 2}")
+    out.append((("dec_out_conv",), f"decoder.{n_ratios + 1}.2", False))
+    return out
+
+
+def export_seanet_state(variables) -> tp.Dict[str, np.ndarray]:
+    """JAX Seanet ``params`` (``enc_in_conv``, ``enc_i_res_j/...``,
+    ``dec_i_convtr``, ...: ``{v, g, bias}``) -> the reference state_dict.
+    A conv's v (k, in, out) becomes [out, in, k], a transposed conv's [in,
+    out, k]; g becomes [channels, 1, 1]. Linear, as ``export_hifi_state``."""
+    params = variables["params"]
+    n_ratios = sum(bool(re.fullmatch(r"enc_\d+_conv", k)) for k in params)
+    n_res = sum(bool(re.fullmatch(r"enc_0_res_\d+", k)) for k in params)
+    out = {}
+    for path, prefix, transposed in seanet_modules(n_ratios, n_res):
+        tree = params
+        for k in path:
+            tree = tree[k]
+        v = np.asarray(tree["v"])
+        out[f"{prefix}.weight_v"] = np.transpose(
+            v, (1, 2, 0) if transposed else (2, 1, 0))
+        out[f"{prefix}.weight_g"] = np.asarray(tree["g"]).reshape(-1, 1, 1)
+        out[f"{prefix}.bias"] = np.asarray(tree["bias"])
+    return out
+
+
 def _tensors(state) -> tp.Dict[str, torch.Tensor]:
     return {k: torch.tensor(np.asarray(v, dtype=np.float32))
             for k, v in state.items()}
@@ -211,6 +291,16 @@ def melgan_state_dict_from_jax(params_np, n_layers: int
                                ) -> tp.Dict[str, torch.Tensor]:
     """JAX MelGAN params (numpy leaves) -> the port's float32 state_dict."""
     return _tensors(export_melgan_state(params_np, n_layers))
+
+
+def hifi_state_dict_from_jax(variables_np) -> tp.Dict[str, torch.Tensor]:
+    """JAX MPD or MSD variables -> the port's float32 state_dict."""
+    return _tensors(export_hifi_state(variables_np))
+
+
+def seanet_state_dict_from_jax(variables_np) -> tp.Dict[str, torch.Tensor]:
+    """JAX Seanet variables -> the port's float32 state_dict."""
+    return _tensors(export_seanet_state(variables_np))
 
 
 class _Stub:

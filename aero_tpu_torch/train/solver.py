@@ -45,6 +45,8 @@ from aero_tpu_torch.utils.log import LogProgress, bold, pull_metric
 logger = logging.getLogger(__name__)
 
 GENERATOR_KEY = "generator"
+# discriminators whose reference .th states are not imported
+_HIFI = {"msd_hifi", "mpd"}
 METRICS_KEY_EVALUATION_LOSS = "evaluation_loss"
 METRICS_KEY_BEST_LOSS = "best_loss"
 METRICS_KEY_LSD = "Average lsd"
@@ -145,15 +147,21 @@ class Solver:
         self.best_states = ckpt.best_states_from_package(package, self.models)
 
     def _load_torch(self, path, load_best, keep_history=True):
-        """Resume from a reference ``.th``: every network it holds (its best
-        states with ``load_best``), the history, the best states and, unless
-        ``load_best``, both Adam states (moments and per-parameter steps,
-        the parameters found by their reference keys)."""
+        """Resume from a reference ``.th``: the generator and the MelGAN it
+        holds (their best states with ``load_best``), the history, the best
+        states and, unless ``load_best``, both Adam states (moments and
+        per-parameter steps, the parameters found by their reference keys).
+        HiFi discriminator states and their Adam moments are logged and
+        skipped, as in the JAX Solver: they keep their fresh
+        initialization."""
         pkg = load_torch_package(path)
         src = pkg["best_states"] if load_best and pkg["best_states"] \
             else pkg["models"]
         for name, model in self.models.items():
-            if name in src:
+            if name in _HIFI:
+                logger.warning(f"no torch importer for discriminator "
+                               f"'{name}'; it keeps its fresh initialization")
+            elif name in src:
                 model.load_state_dict(src[name], strict=True)
             else:
                 logger.warning(f"torch checkpoint has no '{name}' state; "
@@ -164,12 +172,16 @@ class Solver:
             self.history = list(pkg["history"])
         if pkg["best_states"]:
             self.best_states = {n: sd for n, sd in pkg["best_states"].items()
-                                if n in self.models}
+                                if n in self.models and n not in _HIFI}
 
     def _load_torch_moments(self, pkg):
         for key, opt, named in ckpt.optimizer_groups(self.models,
                                                      self.train_step):
             state = (pkg["optimizers"].get(key) or {}).get("state") or {}
+            if _HIFI & set(named):
+                logger.warning(f"torch checkpoint: no Adam moment importer "
+                               f"for the chain {list(named)}; fresh moments")
+                continue
             if not state:
                 logger.warning(f"torch checkpoint carries no '{key}' state; "
                                "Adam resumes with fresh moments")

@@ -85,7 +85,22 @@ prints its time:
    on the tensor cores, the history and LSD are finite, the resume ran
    epoch 3 alone, the samples are written and the prediction is 4x its
    input; it prints the epoch and median step times, the valid, loss and
-   eval times a file, checkpoint save and load times and peak memory.
+   eval times a file, checkpoint save and load times and peak memory;
+10. HiFi and Seanet: the HiFi losses (the train step's LossComputer with
+   its storing discriminator pass), the discriminators' gradient and the
+   stored u of the canonical MPD and MSD at B = 2 x 0.5 s in float32 with
+   TF32 off, the card against the CPU, within 1e-4 relative; the canonical
+   generator trained against ``discriminator_models=[hifi]`` and
+   seanet_4-16 against its MelGAN, each at B = 16 x 2 s in bfloat16 (one
+   checked step, then 2 warm-ups, the median of 5 and a profiled step:
+   step time, throughput, peak memory, idle share, top kernels), raising
+   unless every HiFi step launched 4 forward and 8 backward attention
+   kernels on the tensor cores (Seanet's none), every loss is finite,
+   every network changed and each stored u is finite and moved; the
+   Seanet forward in float32 on the card against the CPU (1e-4 relative
+   L2), its serving forward at B = 16 x 10 s (realtime factor, profile)
+   and the predict CLI on a 35 s file from a port-written ``.atpu``,
+   whose output must be 4x its input.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and the result JSON.
@@ -737,22 +752,10 @@ def serving(attention, lstm, ftb, smi):
 
 
 def train_setup(precision, batch):
-    """Config, models, TrainStep and bench.py's batch (0.1 N(0, 1) from
-    default_rng(0), lr then hr) for the canonical experiment."""
-    from aero_tpu_torch.train.build import build_models, segment_shapes
-    from aero_tpu_torch.train.train_step import TrainStep
-    from aero_tpu_torch.utils.config import load_config
-
-    args = load_config(CONF, "main_config", [
-        "experiment=aero_4-16_512_64", "dset=4-16",
-        f"precision={precision}"])
-    args.experiment.batch_size = batch
-    models = build_models(args, "cuda", seed=0)
-    lr_shape, hr_shape = segment_shapes(args.experiment)
-    rng = np.random.default_rng(0)
-    lr = (0.1 * rng.standard_normal(lr_shape)).astype(np.float32)
-    hr = (0.1 * rng.standard_normal(hr_shape)).astype(np.float32)
-    return models, TrainStep(args, models, "cuda"), lr, hr
+    """Models, TrainStep and bench.py's batch for the canonical
+    experiment (``gan_setup``)."""
+    return gan_setup(["experiment=aero_4-16_512_64", "dset=4-16"],
+                     precision, batch)[1:]
 
 
 def train_gaps(attention):
@@ -809,54 +812,12 @@ def train_gaps(attention):
 
 
 def training(attention, smi):
-    """Phase 6 at batch 16 in bfloat16; returns the launch counts of one
-    step."""
+    """Phase 7 at batch 16 in bfloat16 (``gan_step``); returns the launch
+    counts of one step: 4 attention calls forward and 4 backward, each
+    backward 2 kernels."""
     models, step, lr, hr = train_setup("bfloat16", BATCH)
-    n_params = {n: sum(p.numel() for p in m.parameters())
-                for n, m in models.items()}
-    before = {n: [p.detach().clone() for p in m.parameters()]
-              for n, m in models.items()}
-    zero_attention_counts(attention)
-    metrics = step(lr, hr)
-    torch.cuda.synchronize()
-    launches = attention_counts(attention)
-    # 4 attention calls forward and 4 backward, each backward 2 kernels
-    log(f"train step B={BATCH} x 2 s bf16 ({n_params} params): metrics "
-        + ", ".join(f"{n} {v:.5f}" for n, v in metrics.items())
-        + f"; attention kernel launches {launches}")
-    if launches != {"forward": 4, "forward_mma": 4, "backward": 8,
-                    "backward_mma": 8}:
-        raise AssertionError(f"expected 4 forward and 8 backward attention "
-                             f"kernel launches per step, all on the tensor "
-                             f"cores, got {launches}")
-    if not all(math.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"non-finite metrics {metrics}")
-    for name, model in models.items():
-        moved = max(float((p.detach() - q).abs().max())
-                    for p, q in zip(model.parameters(), before[name]))
-        log(f"  {name}: largest weight change {moved:.3e}")
-        if not moved > 0:
-            raise AssertionError(f"{name} weights did not change")
-    del before
-
-    for _ in range(2):
-        step(lr, hr)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    runs = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step(lr, hr)
-        torch.cuda.synchronize()
-        runs.append(time.perf_counter() - t0)
-    med = statistics.median(runs)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"train step B={BATCH} x 2 s bf16: {med * 1e3:.1f} ms (median of "
-        f"{len(runs)}: {', '.join(f'{r * 1e3:.1f}' for r in runs)}), "
-        f"throughput {BATCH * 2 / med:.1f} audio-s/s, peak memory "
-        f"{peak:.2f} GiB [{smi}]")
-    device_profile(lambda: step(lr, hr), f"train step B={BATCH}", smi)
-    return launches
+    return gan_step(attention, models, step, lr, hr, smi, "train", {
+        "forward": 4, "forward_mma": 4, "backward": 8, "backward_mma": 8})
 
 
 @contextlib.contextmanager
@@ -1147,6 +1108,279 @@ def solver(attention, smi):
     if out["out_samples"] != 4 * n_in:
         raise AssertionError("predict output is not 4x the input")
     return launches
+
+
+HIFI = ["experiment=aero_4-16_512_64", "dset=4-16",
+        "experiment.discriminator_models=[hifi]"]
+SEANET = ["experiment=seanet_4-16", "dset=4-16"]
+CARD_CPU_TOL = 1e-4  # float32 card vs CPU, relative (L2 for tensors)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """float32 matmuls and convolutions without TF32, restored after."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def gan_setup(overrides, precision, batch):
+    """Config, models on the card, TrainStep and bench.py's batch of
+    ``batch`` segments (0.1 N(0, 1) from default_rng(0), lr then hr)."""
+    from aero_tpu_torch.train.build import build_models, segment_shapes
+    from aero_tpu_torch.train.train_step import TrainStep
+    from aero_tpu_torch.utils.config import load_config
+
+    args = load_config(CONF, "main_config",
+                       overrides + [f"precision={precision}"])
+    args.experiment.batch_size = batch
+    models = build_models(args, "cuda", seed=0)
+    lr_shape, hr_shape = segment_shapes(args.experiment)
+    rng = np.random.default_rng(0)
+    lr = (0.1 * rng.standard_normal(lr_shape)).astype(np.float32)
+    hr = (0.1 * rng.standard_normal(hr_shape)).astype(np.float32)
+    return args, models, TrainStep(args, models, "cuda"), lr, hr
+
+
+def hifi_card_vs_cpu():
+    """The HiFi losses (the train step's LossComputer, storing call
+    included) and the discriminators' gradient of the canonical MPD and
+    MSD at B = 2 x 0.5 s in float32, the card against the CPU, TF32 off,
+    each network's gradient held on its own. A float64 run on the CPU
+    (the discriminator pass alone; only the loss terms' float32 casts
+    stay) is the witness that says which float32 side is off, and where."""
+    from aero_tpu_torch.models.discriminators import SNConv1d
+    from aero_tpu_torch.models.factory import build_discriminators
+    from aero_tpu_torch.train.train_step import LossComputer
+    from aero_tpu_torch.utils.config import load_config
+
+    args = load_config(CONF, "main_config", HIFI)
+    rng = np.random.default_rng(3)
+    hr, pr = ((0.1 * rng.standard_normal((2, 1, 8000))).astype(np.float32)
+              for _ in range(2))
+    sides = {}
+    with no_tf32():
+        for side, device, dtype in (("cpu", "cpu", torch.float32),
+                                    ("cuda", "cuda", torch.float32),
+                                    ("f64", "cpu", torch.float64)):
+            models = build_discriminators(args.experiment, "float32", device,
+                                          seed=0)
+            if dtype == torch.float64:
+                for m in models.values():
+                    m.double()
+                    for sub in m.modules():
+                        if hasattr(sub, "compute_dtype"):
+                            sub.compute_dtype = dtype
+            lc = LossComputer(args, models)
+            h, p = (torch.from_numpy(a).to(device, dtype) for a in (hr, pr))
+            real = lc.real_outputs(h)
+            losses = {} if side == "f64" else lc.generator_losses(p, h, real)
+            disc = lc.discriminator_losses(p, real, store=True)
+            losses.update({f"discriminator_{k}": v for k, v in disc.items()})
+            params = {n: list(m.named_parameters())
+                      for n, m in models.items()}
+            grads = torch.autograd.grad(
+                sum(disc.values()), [q for ps in params.values()
+                                     for _, q in ps])
+            leaves, i = {}, 0
+            for n, ps in params.items():
+                leaves[n] = {k: g.double().cpu() for (k, _), g in
+                             zip(ps, grads[i:i + len(ps)])}
+                i += len(ps)
+            us = [m.weight_u for m in models["msd_hifi"].modules()
+                  if isinstance(m, SNConv1d)]
+            sides[side] = ({k: float(v.detach()) for k, v in losses.items()},
+                           leaves, torch.cat(us).double().cpu())
+    (l_cpu, g_cpu, u_cpu), (l_gpu, g_gpu, u_gpu) = sides["cpu"], sides["cuda"]
+    g_64 = sides["f64"][1]
+    loss_gap = max(abs(l_gpu[k] - l_cpu[k]) / abs(l_cpu[k]) for k in l_cpu)
+
+    def flat(leaves):
+        return torch.cat([g.flatten() for g in leaves.values()])
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    gaps, witness = {}, {}
+    for n in g_cpu:
+        gaps[n] = rel(flat(g_gpu[n]), flat(g_cpu[n]))
+        worst = {}
+        for side, g in (("card", g_gpu), ("CPU", g_cpu)):
+            per_leaf = {k: rel(g[n][k], w) for k, w in g_64[n].items()}
+            k = max(per_leaf, key=per_leaf.get)
+            worst[side] = (rel(flat(g[n]), flat(g_64[n])), k, per_leaf[k])
+        witness[n] = worst
+    u_gap = float((u_gpu - u_cpu).abs().max())
+    log(f"hifi card vs CPU, float32 without TF32, B=2 x 0.5 s: losses "
+        + ", ".join(f"{k} {v:.5f}" for k, v in l_gpu.items())
+        + f"; max relative loss gap {loss_gap:.3e}, stored u max gap "
+        f"{u_gap:.3e}; discriminator gradient relative L2 per network "
+        + ", ".join(f"{n} {v:.3e}" for n, v in gaps.items())
+        + f" (each < {CARD_CPU_TOL:g})")
+    for n, worst in witness.items():
+        log(f"  {n} gradient against the float64 CPU witness: "
+            + "; ".join(f"{side} {g:.3e} (worst leaf {k} {v:.3e})"
+                        for side, (g, k, v) in worst.items())
+            + f" (card < {CARD_CPU_TOL:g})")
+    if not (set(l_gpu) == set(l_cpu) and loss_gap < CARD_CPU_TOL
+            and all(v < CARD_CPU_TOL for v in gaps.values())
+            and all(w["card"][0] < CARD_CPU_TOL for w in witness.values())
+            and u_gap < CARD_CPU_TOL):
+        raise AssertionError("hifi losses or gradient on the card disagree "
+                             "with the CPU or the float64 witness")
+
+
+def gan_step(attention, models, step, lr, hr, smi, what, want_launches):
+    """One checked step and then 2 warm-ups and the median of 5 timed
+    steps and a profiled one, each step's attention kernel launches read
+    with the counters set to 0 just before it. Raises unless every step
+    launched ``want_launches``, every loss is finite, every network
+    changed in the first step and each stored spectral-norm u is finite
+    and moved. Returns the first step's launches."""
+    from aero_tpu_torch.models.discriminators import SNConv1d
+
+    n_params = {n: sum(p.numel() for p in m.parameters())
+                for n, m in models.items()}
+    before = {n: [p.detach().clone() for p in m.parameters()]
+              for n, m in models.items()}
+    sn = [m for d in models.values() for m in d.modules()
+          if isinstance(m, SNConv1d)]
+    u_before = [m.weight_u.clone() for m in sn]
+    steps = []
+
+    def counted():
+        zero_attention_counts(attention)
+        metrics = step(lr, hr)
+        torch.cuda.synchronize()
+        steps.append(attention_counts(attention))
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{what}: non-finite metrics {metrics}")
+        return metrics
+
+    metrics = counted()
+    log(f"{what} step B={BATCH} x 2 s bf16 ({n_params} params): metrics "
+        + ", ".join(f"{n} {v:.5f}" for n, v in metrics.items())
+        + f"; attention kernel launches {steps[0]}")
+    for name, model in models.items():
+        moved = max(float((p.detach() - q).abs().max())
+                    for p, q in zip(model.parameters(), before[name]))
+        log(f"  {name}: largest weight change {moved:.3e}")
+        if not moved > 0:
+            raise AssertionError(f"{what}: {name} weights did not change")
+    del before
+    u_moved = [float((m.weight_u - u).abs().max())
+               for m, u in zip(sn, u_before)]
+    if sn:
+        log(f"  {len(sn)} spectral-norm u: smallest change "
+            f"{min(u_moved):.3e}, all finite "
+            f"{all(bool(torch.isfinite(m.weight_u).all()) for m in sn)}")
+    if not all(d > 0 for d in u_moved) or not all(
+            bool(torch.isfinite(m.weight_u).all()) for m in sn):
+        raise AssertionError(f"{what}: a stored u did not move or is not "
+                             "finite")
+    for _ in range(2):
+        counted()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        counted()
+        runs.append(time.perf_counter() - t0)
+    med = statistics.median(runs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{what} step B={BATCH} x 2 s bf16: {med * 1e3:.1f} ms (median of "
+        f"{len(runs)}: {', '.join(f'{r * 1e3:.1f}' for r in runs)}), "
+        f"throughput {BATCH * 2 / med:.1f} audio-s/s, peak memory "
+        f"{peak:.2f} GiB [{smi}]")
+    device_profile(counted, f"{what} step B={BATCH}", smi)
+    bad = [c for c in steps if c != want_launches]
+    if bad:
+        raise AssertionError(f"{what}: expected attention launches "
+                             f"{want_launches} in each of {len(steps)} "
+                             f"steps, got {bad[:3]}")
+    return steps[0]
+
+
+def hifi_seanet(attention, lstm, ftb, smi):
+    """Phase 10: the HiFi train step and Seanet's step, serving and
+    predict CLI at the canonical widths. Returns the attention kernel
+    launches of one HiFi step."""
+    from aero_tpu_torch import predict
+    from aero_tpu_torch.eval.forward import EvalForward
+    from aero_tpu_torch.models.factory import build_generator
+    from aero_tpu_torch.train import checkpoint
+
+    hifi_card_vs_cpu()
+    _, models, step, lr, hr = gan_setup(HIFI, "bfloat16", BATCH)
+    hifi_launches = gan_step(attention, models, step, lr, hr, smi, "hifi", {
+        "forward": 4, "forward_mma": 4, "backward": 8, "backward_mma": 8})
+    del models, step
+    torch.cuda.empty_cache()
+
+    args, models, step, lr, hr = gan_setup(SEANET, "bfloat16", BATCH)
+    gan_step(attention, models, step, lr, hr, smi, "seanet", {
+        "forward": 0, "forward_mma": 0, "backward": 0, "backward_mma": 0})
+    del models, step
+    torch.cuda.empty_cache()
+
+    kwargs = dict(args.experiment.seanet)
+    with no_tf32():
+        gen32 = build_generator(kwargs, "float32", "cpu", seed=0,
+                                model="seanet")
+        x = (0.1 * np.random.default_rng(4).standard_normal(
+            (1, 1, SECONDS * LR_SR))).astype(np.float32)
+        with torch.no_grad():
+            want = gen32(torch.from_numpy(x)).numpy()
+            got = gen32.to("cuda")(torch.from_numpy(x).cuda()).cpu().numpy()
+    gap = rel_l2(got, want)
+    log(f"seanet forward {SECONDS} s, float32 without TF32, card vs CPU: "
+        f"relative L2 {gap:.3e} (< {CARD_CPU_TOL:g})")
+    if not gap < CARD_CPU_TOL:
+        raise AssertionError("seanet forward on the card disagrees with the "
+                             "CPU")
+    del gen32
+
+    gen = build_generator(kwargs, "bfloat16", "cuda", seed=0, model="seanet")
+    log(f"seanet: seanet_4-16, {sum(p.numel() for p in gen.parameters())} "
+        "params, bf16 compute")
+    fwd = EvalForward(gen, scale=HR_SR / LR_SR, lr_sr=LR_SR, device="cuda")
+    x = (0.1 * np.random.default_rng(0).standard_normal(
+        (BATCH, 1, SECONDS * LR_SR))).astype(np.float32)
+    checked_forward(fwd, x, (attention, lstm, ftb), {
+        "attention": 0, "attention_mma": 0, "banded": 0, "lstm": 0,
+        "lstm_mma": 0, "ftb": 0, "ftb_mma": 0})
+    realtime_factor(fwd, x, smi, "seanet")
+    device_profile(lambda: fwd(x), f"seanet forward B={BATCH}", smi)
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            ckpt = os.path.join(tmp, "seanet.atpu")
+            t0 = time.perf_counter()
+            checkpoint.save_package(ckpt, {"models": checkpoint.
+                                           model_variables({"generator": gen})})
+            log(f"seanet .atpu written in {time.perf_counter() - t0:.2f} s")
+            wav = os.path.join(tmp, "chirp35.wav")
+            n_in = write_test_wav(wav, 35)
+            out = predict.main(SEANET + [
+                f"+filename={wav}", f"+output={tmp}/out",
+                f"checkpoint_file={ckpt}", "precision=bfloat16",
+                "device=cuda"])
+        finally:
+            os.chdir(cwd)
+    log(f"seanet predict CLI (main): 35 s file, {n_in} -> "
+        f"{out['out_samples']} samples, realtime factor "
+        f"{out['realtime_factor']:.1f}x [{smi}]")
+    if out["out_samples"] != 4 * n_in:
+        raise AssertionError("seanet predict output is not 4x the input")
+    return hifi_launches
 
 
 @functools.lru_cache(maxsize=None)
@@ -1505,6 +1739,8 @@ def main():
         opt = optin_numbers(attention, lstm, ftb, smi)
     with phase("9 solver"):
         solver_launches = solver(attention, smi)
+    with phase("10 hifi and seanet"):
+        hifi_launches = hifi_seanet(attention, lstm, ftb, smi)
 
     def per_step(key):  # 2 calls at each train shape per step
         return 2 * (nums["train_enc2"][key] + nums["train_enc3"][key])
@@ -1532,6 +1768,8 @@ def main():
     kernels[0]["launches_serving_forward"] = serve_launches["attention_mma"]
     kernels[0]["launches_solver"] = solver_launches["forward_mma"]
     kernels[1]["launches_solver"] = solver_launches["backward_mma"]
+    kernels[0]["launches_hifi_step"] = hifi_launches["forward_mma"]
+    kernels[1]["launches_hifi_step"] = hifi_launches["backward_mma"]
     kernels += [
         optin_entry("local_attention_banded_fwd", "local_attention_mma.cu",
                     "aero_tpu/ops/attention.py:180", optin_launches["banded"],

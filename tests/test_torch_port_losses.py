@@ -139,8 +139,17 @@ def test_seeded_melgan_init():
 
 @pytest.mark.parametrize("name", ["msd_hifi", "mpd", "hifi"])
 def test_later_discriminators_raise(name):
-    exp = Config._wrap(dict(adversarial=True, discriminator_models=[name]))
-    with pytest.raises(NotImplementedError):
+    """The HiFi names, ported after the MelGAN, build their networks
+    (``hifi`` both); a name the JAX factory does not know raises."""
+    hifi = dict(msd=dict(hidden=16, num_D=2), mpd=dict(hidden=2, periods=[2]))
+    exp = Config._wrap(dict(adversarial=True, discriminator_models=[name],
+                            **hifi))
+    assert list(build_discriminators(exp, device="cpu")) == {
+        "msd_hifi": ["msd_hifi"], "mpd": ["mpd"],
+        "hifi": ["msd_hifi", "mpd"]}[name]
+    exp = Config._wrap(dict(adversarial=True,
+                            discriminator_models=[name + "_v2"], **hifi))
+    with pytest.raises(ValueError):
         build_discriminators(exp, device="cpu")
 
 

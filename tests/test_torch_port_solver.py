@@ -139,3 +139,73 @@ def test_train_resume_test_predict_tiny_cpu(tmp_path, monkeypatch):
         got = gen(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= FWD_TOL * np.abs(want).max()
+
+
+def test_seanet_train_resume_test_cpu(tmp_path, monkeypatch):
+    """seanet_4-16 at narrow width through the same CLIs: one epoch with
+    its MelGAN, cross-validation and evaluation (the waveform forward, the
+    spectra by ``make_spec_fns``' non-Aero branch), a resume from its
+    ``checkpoint.atpu`` for a second epoch that starts from the first's
+    last weights and Adam step, then the test CLI."""
+    make_dummy_dataset(str(tmp_path / "egs"), n_files=4, duration=1.2,
+                       seed=1)
+    monkeypatch.chdir(tmp_path)
+    base = ["experiment=seanet_4-16", "dset=debug", "device=cpu",
+            "visqol=false", "num_workers=0", "eval_bucket_s=0.5",
+            "dset.train=egs/tr", "dset.valid=egs/val", "dset.test=egs/val",
+            "experiment.seanet.ngf=4", "experiment.seanet.ratios=[2,2]",
+            "experiment.seanet.n_residual_layers=1",
+            "experiment.seanet.latent_space_size=8",
+            "experiment.melgan_discriminator.ndf=4",
+            "experiment.melgan_discriminator.n_layers=2",
+            "experiment.melgan_discriminator.num_D=2",
+            "experiment.segment=1", "experiment.stride=1",
+            "experiment.batch_size=2"]
+    train = base + ["cross_valid=true", "cross_valid_every=1",
+                    "eval_every=1"]
+    run_dir = tmp_path / "outputs" / "debug" / "seanet"
+
+    starts = {}
+    run_one_epoch = Solver._run_one_epoch
+
+    def spy(self, epoch):
+        starts[epoch] = (
+            {k: v.clone() for k, v in self.gen.state_dict().items()},
+            {float(st["step"])
+             for st in self.train_step.gen_opt.state.values()})
+        return run_one_epoch(self, epoch)
+
+    monkeypatch.setattr(Solver, "_run_one_epoch", spy)
+    history = ptrain.main(train + ["epochs=1"])
+    assert len(history) == 1 and list(starts) == [0]
+    assert not starts[0][1]  # fresh Adam
+    package = pckpt.load_package(str(run_dir / "checkpoint.atpu"))
+    saved = pckpt.generator_state_dict(str(run_dir / "checkpoint.atpu"))
+    count = float(np.asarray(
+        package["optimizers"]["optimizer"]["0"]["count"]))
+    assert count > 0
+
+    history = ptrain.main(train + ["epochs=2"])
+    assert list(starts) == [0, 1] and len(history) == 2
+    weights, steps = starts[1]
+    assert sorted(weights) == sorted(saved)
+    for k, v in saved.items():
+        assert torch.equal(weights[k], v), k
+    assert steps == {count}
+    for entry in history:
+        numbers = [v for v in entry.values() if isinstance(v, float)]
+        assert numbers and all(np.isfinite(numbers))
+        for key in ("total_loss", "valid_evaluation_loss", "best_loss",
+                    "generator_stft_loss", "generator_adversarial_melgan_loss",
+                    "discriminator_msd_melgan_loss", "Average lsd"):
+            assert key in entry, key
+    assert (run_dir / "best.atpu").exists()
+    samples = sorted(os.listdir(run_dir / "samples"))
+    for kind in ("lr.wav", "hr.wav", "pr.wav", "lr_spec.png",
+                 "pr_spec.png", "hr_spec.png"):
+        assert f"p000_{kind}" in samples
+
+    results = ptest.main(base)
+    assert results["n_files"] == 4 and np.isfinite(results["lsd"])
+    with open(run_dir / "test_results.json") as f:
+        assert json.load(f)["lsd"] == results["lsd"]
