@@ -25,5 +25,11 @@ tested against. Imports ``torch`` and never ``jax`` or ``aero_tpu``.
                and evaluate.
 - ``utils``  — the config loader, logging, heatmap PNGs, the wandb shim,
                the host STFT.
+- ``parallel`` — data parallelism over processes: the group from
+               torchrun's variables, the cross-rank sums that make N
+               ranks' step the one-process step on the global batch, the
+               metric averages over ranks.
 - ``test``, ``predict`` — the test-set and single-file CLIs.
+- ``entry``  — the canonical forward and ``dryrun_multichip`` (one GAN
+               step over gloo ranks on the CPU).
 """

@@ -3,8 +3,10 @@
 
 Per file: the generator forward (with its spectra for Aero), LSD and
 ViSQOL, the wandb media, and the ``_lr/_hr/_pr`` wav and PNG artifacts.
-Zero scores are left out of the averages. One process is the only case:
-the averages are local.
+Zero scores are left out of the averages. Under a ``torch.distributed``
+group each rank scores its shard of the files and the averages are taken
+over every rank's scores (``parallel.mesh.global_weighted_average``; a
+rank with no files joins with count 0), so every rank returns the same.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from concurrent.futures import ThreadPoolExecutor
 from aero_tpu_torch.data.datasets import match_signal
 from aero_tpu_torch.eval.enhance import save_specs, save_wavs
 from aero_tpu_torch.eval.metrics import run_metrics
+from aero_tpu_torch.parallel.mesh import global_weighted_average
 from aero_tpu_torch.utils import wandb_logger
 from aero_tpu_torch.utils.log import LogProgress, bold
 
@@ -39,6 +42,13 @@ class _Scores:
     def averages(self):
         return (self.lsd / self.lsd_count if self.lsd_count else 0.0,
                 self.visqol / self.visqol_count if self.visqol_count else 0.0)
+
+    def global_averages(self):
+        """``averages`` over every rank's nonzero scores."""
+        lsd, visqol = self.averages()
+        (lsd,), _ = global_weighted_average([lsd], self.lsd_count)
+        (visqol,), _ = global_weighted_average([visqol], self.visqol_count)
+        return lsd, visqol
 
     def summary(self):
         lsd, visqol = self.averages()
@@ -112,7 +122,7 @@ def evaluate(args, data_loader, epoch, eval_forward, spec_fns=None):
     exp = args.experiment
     logger.info(bold(f"{exp.name}, {exp.lr_sr}->{exp.hr_sr}. Test set "
                      f"performance:{scores.summary()}"))
-    return (*scores.averages(), total_filenames)
+    return (*scores.global_averages(), total_filenames)
 
 
 def evaluate_on_saved_data(args, dataset, epoch):
@@ -156,4 +166,4 @@ def evaluate_on_saved_data(args, dataset, epoch):
             scores.add(*fut.result())
     logger.info(bold(f"{args.experiment.name}. Saved-data performance: "
                      f"{scores.summary()}"))
-    return scores.averages()
+    return scores.global_averages()

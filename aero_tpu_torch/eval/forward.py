@@ -7,7 +7,9 @@ scaled length; with ``return_spec`` it also returns the generator's own
 output and input spectra. PyTorch runs eagerly, so the bucket only keeps
 the arithmetic identical to the JAX package's (``eval_bucket_s``).
 ``ChunkedInference`` splits a file into fixed chunks on the host, as the
-reference predict does, optionally running all full chunks as one batch.
+reference predict does, optionally running all full chunks as one batch,
+split over generator replicas on several devices, and optionally padding
+the ragged tail to a whole chunk.
 ``make_spec_fns`` gives the spectra that the evaluation's PNGs plot.
 """
 
@@ -63,17 +65,23 @@ class EvalForward:
         self.gen = gen
 
     def _input(self, lr: np.ndarray) -> torch.Tensor:
+        """``lr`` padded to its bucket, on the device."""
         t = lr.shape[-1]
         padded_t = t if self.bucket <= 0 else bucket_target(t, self.bucket)
         x = _pad_reflect_tail(np.asarray(lr, np.float32), padded_t)
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+    def _run(self, x: torch.Tensor, t: int) -> torch.Tensor:
+        """The prediction of ``x = _input(lr)`` for ``t`` input samples,
+        launched on the device and not awaited."""
+        with torch.inference_mode():
+            out = self.gen(x).float()
+        return out[..., :int(t * self.scale)]
+
     def forward_tensor(self, lr: np.ndarray) -> torch.Tensor:
         """The prediction [B, 1, T * scale] as a float32 tensor on the
         device, without its spectra."""
-        with torch.inference_mode():
-            out = self.gen(self._input(lr)).float()
-        return out[..., :int(lr.shape[-1] * self.scale)]
+        return self._run(self._input(lr), lr.shape[-1])
 
     def __call__(self, lr: np.ndarray):
         """lr: [B, 1, T] numpy -> pr [B, 1, T * scale] float32 numpy (and
@@ -88,18 +96,41 @@ class EvalForward:
 
 
 class ChunkedInference:
-    """Reference predict chunking: split into ``segment_s`` chunks, forward
-    each, concatenate. ``batch_chunks=True`` runs all full chunks as one
-    batch and the ragged tail on its own."""
+    """Reference predict chunking (``forward.py:153-226``): split into
+    ``segment_s`` chunks, forward each, concatenate.
+
+    ``batch_chunks=True`` runs all full chunks as one batch and the ragged
+    tail on its own. With ``replicas``, ``EvalForward``s of one generator
+    on two or more devices, that batch is split into equal parts, padded
+    with wrapped chunks, one part a device: every part goes to its device,
+    then every forward is launched, and the host gathers them after (the
+    JAX package shards the batch over its mesh). ``forward`` still runs the
+    tail. ``pad_tail=True`` reflect-pads the ragged tail up to a whole chunk
+    (one shape for every call) and trims the output to ``int(t * scale)``
+    samples; the model sees the pad, so the tail differs slightly from the
+    exact-tail forward.
+    """
 
     def __init__(self, forward: tp.Callable, sr: int, segment_s: float = 10.0,
-                 batch_chunks: bool = False):
+                 batch_chunks: bool = False, pad_tail: bool = False,
+                 scale: tp.Optional[float] = None,
+                 replicas: tp.Sequence[EvalForward] = ()):
+        if pad_tail and scale is None:
+            raise ValueError("pad_tail trims to int(t * scale): give scale")
         self.forward = forward
         self.chunk = int(sr * segment_s)
         self.batch_chunks = batch_chunks
+        self.pad_tail = pad_tail
+        self.scale = scale
+        self.replicas = list(replicas)
 
     def __call__(self, lr: np.ndarray) -> np.ndarray:
         t = lr.shape[-1]
+        if self.pad_tail and t % self.chunk:
+            pad = self.chunk - t % self.chunk
+            xp = np.pad(lr, [(0, 0)] * (lr.ndim - 1) + [(0, pad)],
+                        mode="reflect" if pad < t else "wrap")
+            return self(np.ascontiguousarray(xp))[..., :int(t * self.scale)]
         n_chunks = max(1, math.ceil(t / self.chunk))
         if not self.batch_chunks or n_chunks == 1:
             outs = [np.asarray(self.forward(
@@ -115,7 +146,7 @@ class ChunkedInference:
                 *lr.shape[:-1], n_full, self.chunk)
             stack = np.moveaxis(stack, -2, 0).reshape(
                 n_full * lr.shape[0], *lr.shape[1:-1], self.chunk)
-            y = np.asarray(self.forward(stack))
+            y = self._batch(stack)
             y = y.reshape(n_full, lr.shape[0], *y.shape[1:])
             y = np.moveaxis(y, 0, -2).reshape(
                 *lr.shape[:-1], n_full * y.shape[-1])
@@ -123,6 +154,20 @@ class ChunkedInference:
         if n_full * self.chunk < t:
             outs.append(np.asarray(self.forward(lr[..., n_full * self.chunk:])))
         return np.concatenate(outs, axis=-1)
+
+    def _batch(self, stack: np.ndarray) -> np.ndarray:
+        """The forward of a batch of full chunks, split over the replicas."""
+        n_dev = len(self.replicas)
+        if n_dev < 2:
+            return np.asarray(self.forward(stack))
+        n = len(stack)
+        # wrapped indices: there may be fewer chunks than devices
+        stack = stack[np.arange(-(-n // n_dev) * n_dev) % n]
+        parts = np.split(stack, n_dev)
+        inputs = [fwd._input(part) for fwd, part in zip(self.replicas, parts)]
+        outs = [fwd._run(x, self.chunk)
+                for fwd, x in zip(self.replicas, inputs)]
+        return np.concatenate([o.cpu().numpy() for o in outs])[:n]
 
 
 def make_spec_fns(args, gen: torch.nn.Module):

@@ -71,7 +71,11 @@ class WNConv1d(_WeightNorm):
 
 class WNConvTranspose1d(_WeightNorm):
     """Weight-normalised transposed conv1d (``discriminators.py:130-166``):
-    weight ``[in, out, k]``, so the norm and ``g`` are per INPUT channel."""
+    weight ``[in, out, k]``, so the norm and ``g`` are per INPUT channel.
+
+    The ``output_padding`` samples are zeros plus the bias, as the JAX
+    package computes them (``discriminators.py:161-165``); torch's
+    ``ConvTranspose1d`` would fill them from the kernel instead."""
 
     def __init__(self, chin: int, chout: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, output_padding: int = 0,
@@ -83,8 +87,11 @@ class WNConvTranspose1d(_WeightNorm):
 
     def forward(self, x):
         w, b = self._cast()
-        return F.conv_transpose1d(x.to(self.compute_dtype), w, b, self.stride,
-                                  self.padding, self.output_padding)
+        y = F.conv_transpose1d(x.to(self.compute_dtype), w, None, self.stride,
+                               self.padding)
+        if self.output_padding:
+            y = F.pad(y, (0, self.output_padding))
+        return y + b[:, None]
 
 
 class WNConv2d(_WeightNorm):

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from aero_tpu_torch.ops import attention, ftb, lstm
+from aero_tpu_torch.parallel import mesh
 
 logger = logging.getLogger(__name__)
 
@@ -87,6 +88,12 @@ class BatchNorm(nn.Module):
     microbatches give ``0.9 * old + 0.1 * mean_k(batch_k)``, as the JAX
     step's averaged updates do, where an update per forward would give
     ``0.9**K * old + ...``.
+
+    The batch is the global one when the step runs on several ranks: the
+    per-channel sums of x and x^2 and the element count go through
+    ``parallel.mesh.all_sum`` (one collective, differentiable) before the
+    mean and variance are formed, as the JAX step's statistics span its
+    sharded batch.
     """
 
     MOMENTUM = 0.1
@@ -105,11 +112,15 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = [0] + list(range(2, x.dim()))
             xf = x.float()
-            mean = xf.mean(axes)
-            var = (xf * xf).mean(axes) - mean * mean
-            n = x.numel() // x.shape[1]
+            c = x.shape[1]
+            sums = mesh.all_sum(torch.cat([
+                xf.sum(axes), (xf * xf).sum(axes),
+                xf.new_full((1,), float(x.numel() // c))]))
+            n = sums[2 * c].detach()
+            mean = sums[:c] / n
+            var = sums[c:2 * c] / n - mean * mean
             self.batch_stats = (mean.detach(),
-                                var.detach() * (n / max(n - 1, 1)))
+                                var.detach() * (n / (n - 1).clamp_min(1)))
             inv = torch.rsqrt(var + self.eps) * self.weight
             shift = self.bias - mean * inv
         else:

@@ -16,9 +16,9 @@ so a reference ``.th`` loads with ``load_state_dict``. The weight norm
 is computed in float32 and the convs run in ``compute_dtype``.
 
 For an odd ratio the decoder's transposed conv has an output_padding
-sample, which torch's ``conv_transpose1d`` computes like any other and
-the JAX package fills with the bias alone; the port follows torch, as the
-reference does. No shipped config has an odd ratio.
+sample, which the JAX package fills with the bias alone, where torch's
+``conv_transpose1d`` (and so the reference) computes it like any other;
+the port follows the JAX package. No shipped config has an odd ratio.
 """
 
 from __future__ import annotations

@@ -54,5 +54,5 @@ def mel_spectrogram(x, sample_rate: int, n_fft: int = 400,
     z = stft(x, n_fft, hop_length, win_length)
     spec = z.real ** 2 + z.imag ** 2  # no sqrt for the square to undo
     fb = torch.from_numpy(mel_filterbank(sample_rate, n_fft, n_mels, f_min,
-                                         f_max)).to(x.device)
+                                         f_max)).to(x.device, spec.dtype)
     return torch.einsum("...ft,fm->...mt", spec, fb)

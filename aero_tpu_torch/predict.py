@@ -4,7 +4,8 @@ Usage::
 
     python -m aero_tpu_torch.predict experiment=aero_4-16_512_64 dset=4-16 \\
         +filename=<in.wav> +output=<dir> [checkpoint_file=<.atpu or .th>] \\
-        [continue_best=true] [precision=bfloat16] [device=cuda|cpu]
+        [continue_best=true] [precision=bfloat16] [device=cuda|cpu] \\
+        [batch_chunks=false] [+pad_tail_to_chunk=1] [+devices=[cuda:0,cuda:1]]
 
 (``experiment=seanet_4-16`` serves Seanet the same way.)
 
@@ -12,17 +13,22 @@ Changes into the run directory ``outputs/<dset>/<experiment>/`` (as the
 train CLI does) and loads the generator from ``checkpoint_file`` there
 (default ``checkpoint.atpu``; an ``.atpu`` or a reference-format ``.th``;
 its best state with ``continue_best``). Splits the input into 10 s chunks
-(all full chunks as one batch), times the prediction and writes
-``<stem>_pr.wav``. The device is CUDA unless ``device=cpu`` is given; with
-no GPU present it raises rather than running on the CPU.
+(all full chunks as one batch unless ``batch_chunks=false``; the ragged
+tail padded to a whole chunk with ``+pad_tail_to_chunk=1``), times the
+prediction and writes ``<stem>_pr.wav``. The device is CUDA unless
+``device=cpu`` is given; with no GPU present it raises rather than running
+on the CPU. With several local GPUs, or a device list ``+devices=[...]``,
+the batch of full chunks is split over one generator replica a device.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import sys
 import time
+import typing as tp
 from pathlib import Path
 
 import numpy as np
@@ -49,9 +55,23 @@ def resolve_device(name) -> torch.device:
     return device
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def serving_devices(args, device: torch.device) -> tp.List[torch.device]:
+    """The devices that serve the batch of full chunks: ``+devices`` when
+    the config names them, every local GPU for a CUDA ``device`` without an
+    index, else ``device`` alone."""
+    if args.get("devices"):
+        return [resolve_device(d) for d in args.devices]
+    if device.type == "cuda" and device.index is None \
+            and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _sync(devices):
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def write_wav(wav: np.ndarray, filename: str, sr: int) -> None:
@@ -61,26 +81,39 @@ def write_wav(wav: np.ndarray, filename: str, sr: int) -> None:
 
 
 def predict_file(gen: torch.nn.Module, filename: str, output_dir: str,
-                 lr_sr: int, hr_sr: int, device, bucket_s: float = 1.0
-                 ) -> dict:
-    """Upsample one WAV file with ``gen``; returns the output path, sample
-    counts, the timed seconds and the realtime factor. One untimed run
-    first warms both shapes (the batched chunks and the ragged tail)."""
+                 lr_sr: int, hr_sr: int, device, bucket_s: float = 1.0,
+                 batch_chunks: bool = True, pad_tail: bool = False,
+                 devices: tp.Sequence = ()) -> dict:
+    """Upsample one WAV file with ``gen`` (on ``device``); returns the
+    output path, sample counts, the timed seconds and the realtime factor.
+    With two or more ``devices`` (``device`` among them or not) a replica
+    of ``gen`` on each serves its part of the batch of full chunks. One
+    untimed run first warms both shapes (the batched chunks and the ragged
+    tail)."""
     device = torch.device(device)
     lr_sig, sr = audio_io.load(filename)
     if sr != lr_sr:
         raise ValueError(f"{filename}: sample rate {sr}, expected {lr_sr}")
     scale = hr_sr / lr_sr
-    fwd = EvalForward(gen, scale=scale, lr_sr=sr, device=device,
-                      bucket_s=bucket_s)
-    chunked = ChunkedInference(fwd, sr, segment_s=SEGMENT_DURATION_SEC,
-                               batch_chunks=True)
+
+    def forward(model, on):
+        return EvalForward(model, scale=scale, lr_sr=sr, device=on,
+                           bucket_s=bucket_s)
+
+    devices = [torch.device(d) for d in devices]
+    replicas = [forward(gen if d == device else copy.deepcopy(gen).to(d), d)
+                for d in devices] if len(devices) > 1 else []
+    chunked = ChunkedInference(forward(gen, device), sr,
+                               segment_s=SEGMENT_DURATION_SEC,
+                               batch_chunks=batch_chunks, pad_tail=pad_tail,
+                               scale=scale, replicas=replicas)
+    used = [device, *devices]
     x = lr_sig[None]  # [1, C, T]
     chunked(x)
-    _sync(device)
+    _sync(used)
     start = time.perf_counter()
     pr = chunked(x)[0]
-    _sync(device)
+    _sync(used)
     seconds = time.perf_counter() - start
     audio_sec = lr_sig.shape[-1] / sr
     out = os.path.join(output_dir, Path(filename).stem + "_pr.wav")
@@ -106,6 +139,7 @@ def main(argv=None) -> dict:
     if exp.get("upsample", False):
         raise NotImplementedError("upsample=true datasets are not ported")
     device = resolve_device(args.get("device"))
+    devices = serving_devices(args, device)
     filename = os.path.abspath(str(args.filename))
     output_dir = os.path.abspath(str(args.output))
     cwd = os.getcwd()
@@ -113,10 +147,13 @@ def main(argv=None) -> dict:
     os.makedirs(run_dir, exist_ok=True)
     os.chdir(run_dir)
     try:
-        gen = load_generator_state(args, device)
+        gen = load_generator_state(args, devices[0])
         return predict_file(gen, filename, output_dir, int(exp.lr_sr),
-                            int(exp.hr_sr), device,
-                            float(args.get("eval_bucket_s", 1.0)))
+                            int(exp.hr_sr), devices[0],
+                            float(args.get("eval_bucket_s", 1.0)),
+                            bool(args.get("batch_chunks", True)),
+                            bool(args.get("pad_tail_to_chunk", False)),
+                            devices)
     finally:
         os.chdir(cwd)
 

@@ -12,6 +12,10 @@ generator from ``checkpoint_file`` there (its best state with
 ``continue_best``), enhances and scores every test file (LSD, and ViSQOL
 unless ``visqol=false``), writes the ``_lr/_hr/_pr`` samples and the
 averages to ``test_results_file``. CUDA unless ``device=cpu``.
+
+Under torchrun's variables each rank joins their group, scores its strided
+shard of the test files, and the averages span every rank's scores; rank
+0 alone logs them and writes ``test_results_file``.
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ import sys
 from aero_tpu_torch.eval import metrics as eval_metrics
 from aero_tpu_torch.eval.evaluate import evaluate
 from aero_tpu_torch.eval.forward import EvalForward, make_spec_fns
+from aero_tpu_torch.parallel import mesh
 from aero_tpu_torch.predict import CONF_DIR, resolve_device
-from aero_tpu_torch.train.__main__ import absolute_dset_paths, eval_loader
+from aero_tpu_torch.train.__main__ import (
+    absolute_dset_paths, eval_loader, join_group)
 from aero_tpu_torch.train.build import load_generator_state
 from aero_tpu_torch.utils.log import bold, setup_logging
 
@@ -43,18 +49,21 @@ def run(args, device) -> dict:
                       return_spec=exp.model == "aero")
     lsd, visqol, files = evaluate(args, eval_loader(args, args.dset.test, True),
                                   0, fwd, spec_fns=make_spec_fns(args, gen))
-    logger.info("Done evaluation.")
-    logger.info(bold(f"LSD={lsd} , VISQOL={visqol}"))
-    results = {"lsd": lsd, "visqol": visqol, "n_files": len(files),
+    _, n_files = mesh.global_weighted_average([], len(files))
+    results = {"lsd": lsd, "visqol": visqol, "n_files": n_files,
                "checkpoint_file": str(args.checkpoint_file)}
     if visqol:
         results["visqol_scorer"] = eval_metrics.visqol_scorer_version(
             args.get("visqol_path") or eval_metrics.default_visqol_path()
         ) or "unknown"
-        logger.info(f"ViSQOL scorer: {results['visqol_scorer']} (MOS "
-                    "comparable only within one scorer stamp)")
-    with open(str(args.test_results_file), "w") as f:
-        json.dump(results, f, indent=2)
+    if mesh.rank() == 0:
+        logger.info("Done evaluation.")
+        logger.info(bold(f"LSD={lsd} , VISQOL={visqol}"))
+        if visqol:
+            logger.info(f"ViSQOL scorer: {results['visqol_scorer']} (MOS "
+                        "comparable only within one scorer stamp)")
+        with open(str(args.test_results_file), "w") as f:
+            json.dump(results, f, indent=2)
     return results
 
 
@@ -72,8 +81,9 @@ def main(argv=None) -> dict:
     os.chdir(run_dir)
     try:
         setup_logging(bool(args.verbose))
-        return run(args, device)
+        return run(args, join_group(args, device))
     finally:
+        mesh.destroy()
         os.chdir(cwd)
 
 

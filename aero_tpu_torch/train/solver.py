@@ -15,6 +15,13 @@ on the bucketed input (as ``EvalForward``), trimmed and zero-padded to the
 hr length, then the train step's losses, discriminators' included. (The
 JAX package pads and masks to buckets only for XLA's static shapes; its
 masked losses equal these by construction.)
+
+Under a ``torch.distributed`` group (``parallel.mesh``) every rank runs
+this loop on its shards: the train steps are one step on the global batch
+(``TrainStep``), the valid losses and the test metrics are averaged over
+the ranks with each rank's file count as its weight (an empty shard joins
+with 0), so the best state and the schedule agree on every rank, and
+rank 0 alone writes ``history.json`` and the checkpoints.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from aero_tpu_torch.eval import metrics as eval_metrics
 from aero_tpu_torch.eval.enhance import save_specs, save_wavs
 from aero_tpu_torch.eval.evaluate import evaluate, evaluate_on_saved_data
 from aero_tpu_torch.eval.forward import EvalForward, make_spec_fns
+from aero_tpu_torch.parallel import mesh
 from aero_tpu_torch.train import checkpoint as ckpt
 from aero_tpu_torch.train.from_jax import (
     load_torch_package, torch_param_order)
@@ -117,6 +125,7 @@ class Solver:
         self.history: list = []
         self.best_states = None
         self.step = 0
+        self._valid_keys = None
         self._reset()
 
     # ------------------------------------------------------------------
@@ -222,6 +231,15 @@ class Solver:
         best_loss = None
         if self.best_states is None:
             self.best_states = {}
+        if mesh.is_distributed():
+            # every rank builds (or loads) the CUDA kernels, which takes
+            # each a different time, then the ranks line up on the store
+            # before the first step's collectives
+            if self.device.type == "cuda":
+                from aero_tpu_torch.ops import _build
+
+                _build.library()
+            mesh.coordination_barrier("first_train_step")
 
         for epoch in range(len(self.history), self.epochs):
             last = epoch == self.epochs - 1
@@ -284,10 +302,11 @@ class Solver:
             logger.info("-" * 70)
             logger.info(bold(f"Overall Summary | Epoch {epoch + 1} | {info}"))
 
-            with open(self.history_file, "w") as f:
-                json.dump(self.history, f, indent=2)
-            if self._should_checkpoint(epoch):
-                self._serialize()
+            if mesh.rank() == 0:
+                with open(self.history_file, "w") as f:
+                    json.dump(self.history, f, indent=2)
+                if self._should_checkpoint(epoch):
+                    self._serialize()
         return self.history
 
     def _evaluate(self, epoch, enhanced_filenames) -> dict:
@@ -422,7 +441,28 @@ class Solver:
         with self._eval_mode():
             for i, (lr, hr) in enumerate(logprog):
                 _accumulate(sums, self._file_valid_metrics(lr, hr))
-        return _average(sums, i + 1)
+        return self._reduce_valid(_average(sums, i + 1), i + 1)
+
+    def _valid_metric_keys(self) -> list:
+        """The valid averages' names in ``_average``'s order, from the
+        losses of one second of silence: the same list on every rank,
+        whether or not its shard holds files."""
+        if self._valid_keys is None:
+            hr = torch.zeros((1, 1, int(self.args.experiment.hr_sr)),
+                             device=self.device)
+            self._valid_keys = list(_average(self.valid_losses(hr, hr), 1))
+        return self._valid_keys
+
+    def _reduce_valid(self, avg: dict, n: int) -> dict:
+        """The valid averages over every rank's files (``n`` of them here),
+        so that every rank takes the same best state; one process: ``avg``.
+        A metric this rank did not see (no files) joins with weight 0."""
+        if not mesh.is_distributed():
+            return avg
+        keys = self._valid_metric_keys()
+        values, _ = mesh.global_weighted_average(
+            [avg.get(k, 0.0) for k in keys], n)
+        return dict(zip(keys, values))
 
     def _valid_on_test_data(self, epoch, enhance):
         """Valid losses over the test loader; with ``enhance`` also each
@@ -457,7 +497,8 @@ class Solver:
                 if pr_spec is not None:
                     save_specs(lr_spec[0], pr_spec[0], hr_spec[0], path)
                 _accumulate(sums, self.valid_losses(pr, hr))
-        return _average(sums, i + 1), (filenames if enhance else None)
+        return (self._reduce_valid(_average(sums, i + 1), i + 1),
+                filenames if enhance else None)
 
     # ------------------------------------------------------------------
     # Checkpoints

@@ -12,6 +12,17 @@ so does this one, which is what the reference's solver does as well
 the losses, the gradients, the BatchNorm statistics and the stored
 spectral-norm u over them before the one update, as the JAX step does.
 
+The step is the same function at any world size. Under a
+``torch.distributed`` group each rank holds B/N rows of the global batch
+(rank 0's first, as the JAX package assembles its sharded batch); the
+BatchNorm statistics and the STFT loss's spectral convergence span the
+global batch (``parallel.mesh.all_sum``), the gradients and the metrics
+are averaged over ranks, and with K > 1 the rows are regrouped so that
+each microbatch is the JAX step's. The spectral-norm u depends on the
+weights alone, so every rank stores the same. N ranks thus compute the
+losses, gradients, statistics and updates that one process computes on
+the B rows.
+
 Every discriminator of the JAX package is here: the MelGAN (hinge and
 feature losses) and HiFi-GAN's MSD and MPD (``msd_hifi``, ``mpd``, and
 ``hifi`` for both with the mel L1), with the JAX step's metric names.
@@ -30,6 +41,7 @@ from aero_tpu_torch.losses.stft_loss import multi_resolution_stft_loss
 from aero_tpu_torch.models.discriminators import SNConv1d
 from aero_tpu_torch.models.modules import BatchNorm
 from aero_tpu_torch.ops.mel import mel_spectrogram
+from aero_tpu_torch.parallel import mesh
 
 _GEN_LOSSES = ("l1", "l2", "stft")
 
@@ -100,9 +112,13 @@ class LossComputer:
         spectral-norm u is stored."""
         return {name: self._discriminate(name, hr) for name in self.forwards}
 
-    def generator_losses(self, pr, hr, real) -> tp.Dict[str, torch.Tensor]:
+    def generator_losses(self, pr, hr, real, all_sum=None
+                         ) -> tp.Dict[str, torch.Tensor]:
         """{name: loss} of the generator's prediction ``pr`` against
-        ``hr``, both [B, 1, T]; ``real`` is ``real_outputs(hr)``."""
+        ``hr``, both [B, 1, T]; ``real`` is ``real_outputs(hr)``.
+        ``all_sum``: the train step's cross-rank sum, which makes the STFT
+        loss's spectral convergence one ratio over the global batch (every
+        other loss is a mean over equal shards)."""
         out = {}
         if "l1" in self.losses:
             out["l1"] = torch.mean(torch.abs(pr - hr))
@@ -112,7 +128,8 @@ class LossComputer:
             sc, mag = multi_resolution_stft_loss(
                 pr[:, 0, :], hr[:, 0, :],
                 factor_sc=float(self.args.stft_sc_factor),
-                factor_mag=float(self.args.stft_mag_factor))
+                factor_mag=float(self.args.stft_mag_factor),
+                all_sum=all_sum)
             out["stft"] = sc + mag
         fake = {name: self._discriminate(name, pr) for name in self.forwards}
         if "msd_melgan" in self.disc_names:
@@ -223,9 +240,12 @@ class TrainStep:
         as floats, per BatchNorm of the generator its (mean, unbiased var)
         and per spectral-normed conv the u its discriminator pass stored,
         each averaged over the ``accum_steps`` microbatches (every one of
-        which starts from the stored u, as in JAX)."""
+        which starts from the stored u, as in JAX). Under a group, ``lr``
+        and ``hr`` are this rank's rows, and all of these are the global
+        batch's, equal on every rank."""
         lr, hr = self._tensor(lr), self._tensor(hr)
         k = self.accum
+        lr, hr = mesh.regroup_for_accum(lr, hr, k)
         if lr.shape[0] % k:
             raise ValueError(f"batch {lr.shape[0]} is not divisible by "
                              f"accum_steps={k}")
@@ -246,7 +266,8 @@ class TrainStep:
                 acc[0].add_(bn.batch_stats[0], alpha=1 / k)
                 acc[1].add_(bn.batch_stats[1], alpha=1 / k)
             real = self.lc.real_outputs(hr_mb)
-            gen_losses = self.lc.generator_losses(pr, hr_mb, real)
+            gen_losses = self.lc.generator_losses(pr, hr_mb, real,
+                                                  mesh.all_sum)
             total = sum(gen_losses.values())
             self._add_grads(gen_grads, total, self.gen_params, 1 / k)
             disc_losses = {}
@@ -265,8 +286,14 @@ class TrainStep:
                 metrics[name] = metrics.get(name, 0.0) + value.detach() / k
         for m, u in zip(self.spectral, u0):
             m.weight_u.copy_(u)
+        # the mean over ranks of the gradients, with the metrics in the
+        # same flattened all-reduce (the keys and their order follow from
+        # the config, so every rank sends the same vector)
+        names = list(metrics)
+        values = torch.stack([metrics[n].float() for n in names])
+        mesh.all_reduce_grads(gen_grads + disc_grads + [values])
         return (gen_grads, disc_grads,
-                {n: float(v) for n, v in metrics.items()},
+                dict(zip(names, values.tolist())),
                 ([tuple(s) for s in bn_stats], [u / k for u in u_sum]))
 
     @staticmethod
@@ -277,7 +304,14 @@ class TrainStep:
         opt.zero_grad(set_to_none=True)
 
     def __call__(self, lr, hr) -> tp.Dict[str, float]:
-        gen_grads, disc_grads, metrics, (bn_stats, us) = self.grads(lr, hr)
+        gen_grads, disc_grads, metrics, stats = self.grads(lr, hr)
+        self.apply(gen_grads, disc_grads, stats)
+        return metrics
+
+    def apply(self, gen_grads, disc_grads, stats) -> None:
+        """The update of ``grads()``' results: both Adam steps, the
+        BatchNorm running statistics and the stored u."""
+        bn_stats, us = stats
         self._update(self.gen_opt, self.gen_params, gen_grads)
         if self.disc_opt is not None:
             self._update(self.disc_opt, self.disc_params, disc_grads)
@@ -285,4 +319,3 @@ class TrainStep:
             bn.update_running_stats(mean, var)
         for m, u in zip(self.spectral, us):
             m.weight_u.copy_(u)
-        return metrics

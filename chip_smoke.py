@@ -53,7 +53,9 @@ prints its time:
 7. training: the canonical generator and MelGAN discriminator from the
    seeded init. At batch 4, one step's losses, generator gradient and each
    LocalState gradient leaf with the kernels against the same step with
-   the plain attention under autograd, in float32 and bfloat16. Then
+   the plain attention under autograd, in float32 and bfloat16 (in
+   float32 both runs on the same side of each of the STFT loss's
+   magnitude floors, ``pinned_floors``). Then
    bfloat16 at batch 16 x 2 s with bench.py's batch: 4 forward kernel
    launches and 4 backward calls of 2 kernels each per step, all on the
    tensor cores,
@@ -100,7 +102,28 @@ prints its time:
    Seanet forward in float32 on the card against the CPU (1e-4 relative
    L2), its serving forward at B = 16 x 10 s (realtime factor, profile)
    and the predict CLI on a 35 s file from a port-written ``.atpu``,
-   whose output must be 4x its input.
+   whose output must be 4x its input;
+11. data parallel (``aero_tpu_torch.parallel.mesh``): (a) two ranks
+   spawned on the one card over gloo (NCCL refuses two ranks on one GPU),
+   the canonical generator and MelGAN in float32 without TF32, bench.py's
+   batch of 4 x 2 s (2 rows a rank), accum_steps 1 and 2, against one
+   process on the 4 rows, the ranks and the witness below on the sides
+   of the STFT loss's magnitude floors that one process took
+   (``pinned_floors``): losses
+   within 1e-5 relative, each network's gradient within 1e-4 relative L2
+   or, where one process's own gradient moves more than that when it
+   takes each microbatch's rows in another order (the rounding witness),
+   within 4x that move; the weights equal bit for bit across ranks, 4 + 8
+   attention launches a step (x accum) on each rank; printed beside the
+   control (one process on rank 0's 2 rows alone, which must miss by over
+   10x the bounds) and the witness; (b) the
+   bfloat16 step at batch 16 x 2 s in a one-rank NCCL group, so that every
+   collective of the path runs: 4 + 8 launches on the tensor cores each
+   step, the median of 5 beside phase 7's and a profiled step with the
+   NCCL kernels' device time; (c) the 35 s predict file split over
+   [cuda:0, cuda:0], one replica each, against one device (float32 within
+   1e-5 relative L2, bfloat16 printed), and the predict CLI with
+   ``+devices=[cuda:0,cuda:0]``.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and the result JSON.
@@ -110,6 +133,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import json
 import math
 import os
@@ -554,6 +578,11 @@ def device_profile(fn, what, smi):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  "
             f"{e.key[:90]}")
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    if nccl:
+        log(f"  NCCL collectives: "
+            f"{sum(e.self_device_time_total for e in nccl) / 1e3:.3f} ms in "
+            f"{sum(e.count for e in nccl)} launches")
     return idle
 
 
@@ -751,6 +780,69 @@ def serving(attention, lstm, ftb, smi):
     return launches, opt_launches
 
 
+STFT_FLOOR = 1e-7  # the STFT loss's floor on a bin's power |z|^2
+
+
+class pinned_floors(contextlib.ContextDecorator):
+    """The STFT loss with each bin of the prediction held to a recorded
+    side of the magnitude floor. The loss's gradient jumps where a bin's
+    power crosses the floor (below it the bin has none; just above it,
+    log|z| has slope 1/|z| ~ 3.2e3), and at the seeded init the canonical
+    generator's output has one bin of the 1024-point resolution within
+    float32 rounding of it: two runs that differ in rounding alone (the
+    kernels or the plain attention, ranks or one process, even one run and
+    the next, whose convolutions the card may round differently) can take
+    either side, and the generator gradient then moves 2.4e-4 relative L2.
+    So the runs that a check compares share the sides: ``masks`` maps
+    (resolution, the target row's digest) to that row's mask (power below
+    the floor); a row not in it is recorded from this run, a row in it is
+    replayed. Where the replayed side is the run's own, the loss and its
+    gradient are the loss's own; ``flips`` counts the bins where it was
+    not."""
+
+    def __init__(self, masks: dict):
+        self.masks, self.flips = masks, 0
+
+    def __enter__(self):
+        from aero_tpu_torch.losses import stft_loss as sl
+
+        self.kept = loss, magnitude = sl.stft_loss, sl.stft_magnitude
+
+        def pinned(x, y, fft_size, hop_size, win_length, all_sum=None):
+            keys = [(fft_size, hashlib.sha256(
+                row.detach().float().cpu().numpy().tobytes()).hexdigest())
+                for row in y]
+
+            def held(v, *shape):
+                if v is not x:
+                    return magnitude(v, *shape)
+                z = sl.stft(v, *shape)
+                power = z.real ** 2 + z.imag ** 2
+                below = power < STFT_FLOOR
+                for key, row in zip(keys, below):
+                    self.masks.setdefault(key, row.cpu().numpy())
+                mask = torch.from_numpy(np.stack(
+                    [self.masks[k] for k in keys])).to(power.device)
+                self.flips += int((mask != below).sum())
+                return torch.sqrt(torch.where(
+                    mask, torch.full_like(power, STFT_FLOOR), power))
+
+            sl.stft_magnitude = held
+            try:
+                return loss(x, y, fft_size, hop_size, win_length, all_sum)
+            finally:
+                sl.stft_magnitude = magnitude
+
+        sl.stft_loss = pinned
+        return self
+
+    def __exit__(self, *exc):
+        from aero_tpu_torch.losses import stft_loss as sl
+
+        sl.stft_loss, sl.stft_magnitude = self.kept
+        return False
+
+
 def train_setup(precision, batch):
     """Models, TrainStep and bench.py's batch for the canonical
     experiment (``gan_setup``)."""
@@ -777,10 +869,17 @@ def train_gaps(attention):
                        if isinstance(mod, LocalState)
                        for n, _ in mod.named_parameters()
                        if n != "key.bias"]
-        g_k, _, m_k, _ = step.grads(lr, hr)
-        g_p, _, m_p, _ = forward_with(
-            {(attention, "local_attention"): plain_attention(attention)},
-            step.grads, lr, hr)
+        # float32 only: bfloat16's two runs part by far more than the
+        # floor's rounding band, and its bounds dwarf a flip
+        masks = {}
+        pinned = (functools.partial(pinned_floors, masks)
+                  if dtype == torch.float32 else contextlib.nullcontext)
+        with pinned():
+            g_k, _, m_k, _ = step.grads(lr, hr)
+        with pinned() as pins:
+            g_p, _, m_p, _ = forward_with(
+                {(attention, "local_attention"): plain_attention(attention)},
+                step.grads, lr, hr)
         loss_gap = max(abs(m_k[n] - m_p[n]) / abs(m_p[n]) for n in m_p)
         flat_k = torch.cat([g.flatten().float() for g in g_k])
         flat_p = torch.cat([g.flatten().float() for g in g_p])
@@ -797,7 +896,10 @@ def train_gaps(attention):
             f"{grad_gap:.3e} (< {TRAIN_GRAD_GAP[dtype]:g}), each of "
             f"{len(leaf_gaps)} LocalState leaves relative L2 <= "
             f"{leaf_gaps[worst]:.3e} ({worst}; < "
-            f"{TRAIN_ATTN_LEAF_GAP[dtype]:g}); losses "
+            f"{TRAIN_ATTN_LEAF_GAP[dtype]:g}); "
+            + (f"STFT floor sides replayed against the plain run's own: "
+               f"{pins.flips} of {sum(m.size for m in masks.values())} bins"
+               if pins else "STFT floors not pinned") + "; losses "
             + ", ".join(f"{n} {v:.5f}" for n, v in m_k.items()))
         log("  LocalState leaves: " + ", ".join(
             f"{n.replace('dconv.layers.', '')} {v:.2e}" for n, v in leaf_gaps.items()))
@@ -813,8 +915,8 @@ def train_gaps(attention):
 
 def training(attention, smi):
     """Phase 7 at batch 16 in bfloat16 (``gan_step``); returns the launch
-    counts of one step: 4 attention calls forward and 4 backward, each
-    backward 2 kernels."""
+    counts of one step (4 attention calls forward and 4 backward, each
+    backward 2 kernels) and the median step time in ms."""
     models, step, lr, hr = train_setup("bfloat16", BATCH)
     return gan_step(attention, models, step, lr, hr, smi, "train", {
         "forward": 4, "forward_mma": 4, "backward": 8, "backward_mma": 8})
@@ -1242,7 +1344,8 @@ def gan_step(attention, models, step, lr, hr, smi, what, want_launches):
     with the counters set to 0 just before it. Raises unless every step
     launched ``want_launches``, every loss is finite, every network
     changed in the first step and each stored spectral-norm u is finite
-    and moved. Returns the first step's launches."""
+    and moved. Returns the first step's launches and the median step time
+    in ms."""
     from aero_tpu_torch.models.discriminators import SNConv1d
 
     n_params = {n: sum(p.numel() for p in m.parameters())
@@ -1304,7 +1407,7 @@ def gan_step(attention, models, step, lr, hr, smi, what, want_launches):
         raise AssertionError(f"{what}: expected attention launches "
                              f"{want_launches} in each of {len(steps)} "
                              f"steps, got {bad[:3]}")
-    return steps[0]
+    return steps[0], med * 1e3
 
 
 def hifi_seanet(attention, lstm, ftb, smi):
@@ -1318,7 +1421,7 @@ def hifi_seanet(attention, lstm, ftb, smi):
 
     hifi_card_vs_cpu()
     _, models, step, lr, hr = gan_setup(HIFI, "bfloat16", BATCH)
-    hifi_launches = gan_step(attention, models, step, lr, hr, smi, "hifi", {
+    hifi_launches, _ = gan_step(attention, models, step, lr, hr, smi, "hifi", {
         "forward": 4, "forward_mma": 4, "backward": 8, "backward_mma": 8})
     del models, step
     torch.cuda.empty_cache()
@@ -1381,6 +1484,227 @@ def hifi_seanet(attention, lstm, ftb, smi):
     if out["out_samples"] != 4 * n_in:
         raise AssertionError("seanet predict output is not 4x the input")
     return hifi_launches
+
+DDP_BATCH = 4  # the float32 step: 2 rows on each of 2 ranks
+DDP_LOSS_TOL, DDP_GRAD_TOL = 1e-5, 1e-4  # relative; L2 for a gradient
+# The canonical generator's float32 gradient moves by ~2.5e-4 relative L2
+# at accum 2 when one process merely takes each microbatch's rows in
+# another order (H100, TF32 off, the STFT floors pinned), above
+# DDP_GRAD_TOL; so the ranks' gradient is held to this many times that
+# rounding witness where the witness exceeds DDP_GRAD_TOL
+DDP_WITNESS_FACTOR = 4
+DDP_PREDICT_TOL = 1e-5  # float32, relative L2, split predict vs one device
+
+
+def ddp_step(accum, rows, masks):
+    """One float32 step (TF32 off) of the canonical generator and MelGAN
+    from the seeded init at ``accum_steps = accum`` on ``rows`` of
+    bench.py's batch of DDP_BATCH (a rank's rows under a group), on the
+    STFT floors' sides of ``masks`` (``pinned_floors``). Returns (metrics,
+    {network: its flattened gradient on the CPU}, the step's attention
+    kernel launches, the weights' checksum after the update, the bins
+    whose replayed side was not this run's own)."""
+    from aero_tpu_torch import entry
+    from aero_tpu_torch.ops import attention
+
+    with no_tf32():
+        args, models, step, lr, hr = gan_setup(
+            ["experiment=aero_4-16_512_64", "dset=4-16",
+             f"accum_steps={accum}"], "float32", DDP_BATCH)
+        zero_attention_counts(attention)
+        with pinned_floors(masks) as pins:
+            gen, disc, metrics, stats = step.grads(rows(lr), rows(hr))
+        step.apply(gen, disc, stats)
+        torch.cuda.synchronize()
+        counts = attention_counts(attention)
+        grads = {n: torch.cat([g.flatten() for g in gs]).cpu()
+                 for n, gs in (("generator", gen), ("msd_melgan", disc))}
+        return (metrics, grads, counts, entry.weights_checksum(models),
+                pins.flips)
+
+
+def ddp_rank(accums, masks):
+    """A rank of phase 11 (a): ``ddp_step`` on its rows at each accum, on
+    the floors' sides ``masks[accum]`` of one process; the gradients from
+    rank 0 alone (every rank holds the same)."""
+    from aero_tpu_torch import entry
+    from aero_tpu_torch.ops import _build
+    from aero_tpu_torch.parallel import mesh
+
+    _build.library()
+    out = {}
+    for accum in accums:
+        metrics, grads, counts, checksum, flips = ddp_step(
+            accum, entry.rank_rows, masks[accum])
+        out[accum] = (metrics, grads if mesh.rank() == 0 else None, counts,
+                      checksum, flips)
+        del grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def nccl_rank(smi):
+    """Phase 11 (b) in a one-rank NCCL group: bench.py's batch of 16 x 2 s
+    in bfloat16, one checked step, 2 warm-ups and 5 timed steps, each
+    step's attention launches read with the counters set to 0 before it,
+    then a profiled step (the collectives' device time)."""
+    import torch.distributed as dist
+
+    from aero_tpu_torch.ops import _build, attention
+    from aero_tpu_torch.parallel import mesh
+
+    _build.library()
+    _, models, step, lr, hr = gan_setup(
+        ["experiment=aero_4-16_512_64", "dset=4-16"], "bfloat16", BATCH)
+    launches, runs = [], []
+    for i in range(8):
+        zero_attention_counts(attention)
+        t0 = time.perf_counter()
+        metrics = step(lr, hr)
+        torch.cuda.synchronize()
+        if i >= 3:
+            runs.append(time.perf_counter() - t0)
+        launches.append(attention_counts(attention))
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"nccl step: non-finite metrics {metrics}")
+    device_profile(lambda: step(lr, hr), f"nccl step B={BATCH}", smi)
+    return {"backend": dist.get_backend(), "world": mesh.world_size(),
+            "launches": launches, "runs_ms": [r * 1e3 for r in runs],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def ddp_gaps(metrics, grads, want_metrics, want_grads):
+    loss = max(abs(metrics[k] - v) / abs(v) for k, v in want_metrics.items())
+    grad = {n: float((grads[n] - g).norm() / g.norm())
+            for n, g in want_grads.items()}
+    return loss, grad
+
+
+def data_parallel(smi, phase7_ms):
+    """Phase 11: (a) 2 ranks on the card over gloo against one process,
+    (b) the bfloat16 step under a one-rank NCCL group, (c) split predict.
+    Returns the launches of (a)'s accum-1 step on each rank and of (b)'s
+    first step."""
+    import copy
+
+    from aero_tpu_torch import entry, predict
+    from aero_tpu_torch.data import audio_io
+    from aero_tpu_torch.eval.forward import ChunkedInference, EvalForward
+    from aero_tpu_torch.models.factory import (
+        CANONICAL_AERO_4_16, build_generator)
+    from aero_tpu_torch.train.from_jax import save_reference_checkpoint
+
+    accums = (1, 2)
+    one, alone, swapped = {}, {}, {}
+    masks = {accum: {} for accum in accums}
+    for accum in accums:  # one process records the floors' sides
+        one[accum] = ddp_step(accum, lambda x: x, masks[accum])
+        # the control on its own sides: its rows' power is not the
+        # whole batch's, so a replayed side would not be a rounding's
+        alone[accum] = ddp_step(accum, lambda x: x[:DDP_BATCH // 2], {})
+        # the rounding witness: the same rows of each microbatch in
+        # another order, which changes nothing but the order of sums
+        swapped[accum] = ddp_step(accum, lambda x: x[[1, 0, 3, 2]],
+                                  masks[accum])
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = entry.spawn(ddp_rank, [(accums, masks)] * 2, device="cuda",
+                        backend="gloo", threads=0, timeout_s=400)
+    log(f"ddp (a): 2 ranks on {torch.cuda.get_device_name(0)} over gloo, "
+        f"{time.perf_counter() - t0:.1f} s with start-up [{smi}]")
+    for accum in accums:
+        want_metrics, want_grads = one[accum][:2]
+        metrics, grads = ranks[0][accum][:2]
+        loss, grad = ddp_gaps(metrics, grads, want_metrics, want_grads)
+        c_loss, c_grad = ddp_gaps(alone[accum][0], alone[accum][1],
+                                  want_metrics, want_grads)
+        w_loss, w_grad = ddp_gaps(swapped[accum][0], swapped[accum][1],
+                                  want_metrics, want_grads)
+        bound = {n: max(DDP_GRAD_TOL, DDP_WITNESS_FACTOR * v)
+                 for n, v in w_grad.items()}
+        counts = [r[accum][2] for r in ranks]
+        sums = {r[accum][3] for r in ranks}
+        log(f"ddp (a) accum {accum}, B={DDP_BATCH} x 2 s float32, 2 ranks "
+            f"vs one process: max relative loss gap {loss:.3e} (< "
+            f"{DDP_LOSS_TOL:g}), gradient relative L2 "
+            + ", ".join(f"{n} {v:.3e}" for n, v in grad.items())
+            + " (< " + ", ".join(f"{v:.3e}" for v in bound.values())
+            + f": {DDP_GRAD_TOL:g} or {DDP_WITNESS_FACTOR}x the witness); "
+            f"weights equal across ranks "
+            f"{len(sums) == 1}; attention launches per rank {counts}; STFT "
+            f"floor sides replayed against a run's own: ranks "
+            f"{[r[accum][4] for r in ranks]}, witness {swapped[accum][4]} of "
+            f"{sum(m.size for m in masks[accum].values())} bins; control, "
+            f"rank 0's rows alone: loss gap {c_loss:.3e}, gradient "
+            + ", ".join(f"{n} {v:.3e}" for n, v in c_grad.items())
+            + f"; the witness, one process with each microbatch's rows "
+            f"swapped: loss gap {w_loss:.3e}, gradient "
+            + ", ".join(f"{n} {v:.3e}" for n, v in w_grad.items()))
+        if not (loss < DDP_LOSS_TOL and all(
+                grad[n] < bound[n] for n in grad) and len(sums) == 1
+                and all(c["forward"] == 4 * accum and c["backward"] == 8 * accum
+                        for c in counts)
+                and c_loss > 10 * DDP_LOSS_TOL
+                and c_grad["generator"] > 10 * bound["generator"]):
+            raise AssertionError(f"ddp (a) accum {accum}: the 2-rank step "
+                                 "is not the one-process step")
+    gloo_launches = [r[1][2] for r in ranks]
+    del one, alone, swapped, masks, ranks
+    torch.cuda.empty_cache()
+
+    nccl = entry.spawn(nccl_rank, [(smi,)], device="cuda", backend="nccl",
+                       threads=0, timeout_s=400)[0]
+    med = statistics.median(nccl["runs_ms"])
+    log(f"ddp (b): bf16 step B={BATCH} x 2 s under a {nccl['world']}-rank "
+        f"{nccl['backend']} group: {med:.1f} ms (median of "
+        f"{len(nccl['runs_ms'])}: "
+        + ", ".join(f"{r:.1f}" for r in nccl["runs_ms"])
+        + f"), phase 7 without a group {phase7_ms:.1f} ms; peak memory "
+        f"{nccl['peak_gib']:.2f} GiB; attention launches {nccl['launches'][0]}"
+        f" [{smi}]")
+    want = {"forward": 4, "forward_mma": 4, "backward": 8, "backward_mma": 8}
+    if nccl["backend"] != "nccl" or any(c != want for c in nccl["launches"]):
+        raise AssertionError(f"ddp (b): launches {nccl['launches'][:3]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "chirp35.wav")
+        n_in = write_test_wav(wav, 35)
+        x = audio_io.load(wav)[0][None]
+        gaps = {}
+        for precision in ("float32", "bfloat16"):
+            with no_tf32():
+                gen = build_generator(CANONICAL_AERO_4_16, precision, "cuda",
+                                      seed=0)
+
+                def fwd(model):
+                    return EvalForward(model, scale=HR_SR / LR_SR,
+                                       lr_sr=LR_SR, device="cuda")
+
+                kw = dict(segment_s=10, batch_chunks=True,
+                          scale=HR_SR / LR_SR)
+                y_one = ChunkedInference(fwd(gen), LR_SR, **kw)(x)
+                y_split = ChunkedInference(fwd(gen), LR_SR, replicas=[
+                    fwd(gen), fwd(copy.deepcopy(gen))], **kw)(x)
+            gaps[precision] = rel_l2(y_split, y_one)
+            del gen
+        ckpt = os.path.join(tmp, "gen.th")
+        save_reference_checkpoint(ckpt, build_generator(
+            CANONICAL_AERO_4_16, "float32", "cpu", seed=0),
+            CANONICAL_AERO_4_16)
+        out = predict.main([
+            "experiment=aero_4-16_512_64", "dset=4-16", f"+filename={wav}",
+            f"+output={tmp}/out", f"checkpoint_file={ckpt}",
+            "precision=bfloat16", "device=cuda", "+devices=[cuda:0,cuda:0]"])
+    log(f"ddp (c): 35 s predict split over [cuda:0, cuda:0] vs one device, "
+        f"relative L2: float32 {gaps['float32']:.3e} (< {DDP_PREDICT_TOL:g}),"
+        f" bfloat16 {gaps['bfloat16']:.3e}; the predict CLI with "
+        f"+devices=[cuda:0,cuda:0]: {n_in} -> {out['out_samples']} samples, "
+        f"realtime factor {out['realtime_factor']:.1f}x [{smi}]")
+    if not (gaps["float32"] < DDP_PREDICT_TOL
+            and out["out_samples"] == 4 * n_in):
+        raise AssertionError("ddp (c): split predict disagrees with one "
+                             "device")
+    return {"gloo": gloo_launches, "nccl": nccl["launches"][0]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1733,7 +2057,7 @@ def main():
         serve_launches, optin_launches = serving(attention, lstm, ftb, smi)
     with phase("7 training"):
         train_gaps(attention)
-        train_launches = training(attention, smi)
+        train_launches, train_ms = training(attention, smi)
     with phase("8 numbers"):
         nums = attention_numbers(attention, smi)
         opt = optin_numbers(attention, lstm, ftb, smi)
@@ -1741,6 +2065,8 @@ def main():
         solver_launches = solver(attention, smi)
     with phase("10 hifi and seanet"):
         hifi_launches = hifi_seanet(attention, lstm, ftb, smi)
+    with phase("11 ddp"):
+        ddp_launches = data_parallel(smi, train_ms)
 
     def per_step(key):  # 2 calls at each train shape per step
         return 2 * (nums["train_enc2"][key] + nums["train_enc3"][key])
@@ -1770,6 +2096,13 @@ def main():
     kernels[1]["launches_solver"] = solver_launches["backward_mma"]
     kernels[0]["launches_hifi_step"] = hifi_launches["forward_mma"]
     kernels[1]["launches_hifi_step"] = hifi_launches["backward_mma"]
+    for i, key in enumerate(("forward_mma", "backward_mma")):
+        kernels[i]["launches_ddp_nccl_step"] = ddp_launches["nccl"][key]
+    # the float32 ranks run the SIMT kernels (local_attention.cu,
+    # local_attention_bwd.cu): their launches of the accum-1 step per rank
+    for i, key in enumerate(("forward", "backward")):
+        kernels[i]["launches_ddp_f32_rank_steps"] = [
+            c[key] for c in ddp_launches["gloo"]]
     kernels += [
         optin_entry("local_attention_banded_fwd", "local_attention_mma.cu",
                     "aero_tpu/ops/attention.py:180", optin_launches["banded"],

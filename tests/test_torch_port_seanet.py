@@ -313,52 +313,59 @@ def test_seanet_step_grads_match_jax(seanet_steps, net):
 
 
 @pytest.mark.parametrize("ratio", [3, 2])
-def test_odd_ratio_transposed_conv_follows_torch(ratio):
-    """The decoder's transposed conv at ratios (3, 2) is torch's
-    ``ConvTranspose1d`` with the same weights, output_padding included.
-    For an odd ratio the JAX package differs in the one output_padding
-    sample, which it fills with the bias alone; every other sample is the
-    same."""
+def test_odd_ratio_transposed_conv_follows_jax(ratio):
+    """The decoder's transposed conv at ratios (3, 2) is the JAX package's
+    ``WNConvTranspose1d`` with the same weights, the output_padding sample
+    of an odd ratio included: zeros plus the bias, where torch's
+    ``ConvTranspose1d`` (and so the reference) computes that sample from
+    the kernel. Every other sample is torch's as well. The whole generator
+    at ratios (3, 2) equals JAX's Seanet."""
     port = build_generator(dict(NARROW, ratios=[3, 2]),
                            device="cpu", model="seanet", seed=7)
     i = (3, 2).index(ratio)
     conv = port.decoder[i + 1][1]
     assert conv.output_padding == ratio % 2
     w = conv.weight().detach()
-    ref = torch.nn.ConvTranspose1d(w.shape[0], w.shape[1], 2 * ratio,
-                                   ratio, ratio // 2 + ratio % 2,
-                                   ratio % 2)
-    with torch.no_grad():
-        ref.weight.copy_(w)
-        ref.bias.copy_(conv.bias)
     x = torch.from_numpy(np.random.default_rng(ratio).standard_normal(
         (2, w.shape[0], 37)).astype(np.float32))
     with torch.no_grad():
-        got, want = conv(x).numpy(), ref(x).numpy()
-    assert got.shape == want.shape == (2, w.shape[1], 37 * ratio)
-    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
-
+        got = conv(x).numpy()
     jconv = jdisc.WNConvTranspose1d(w.shape[1], 2 * ratio, stride=ratio,
                                     padding=ratio // 2 + ratio % 2,
                                     output_padding=ratio % 2)
     params = {"v": conv.weight_v.detach().numpy().transpose(2, 0, 1),
               "g": conv.weight_g.detach().numpy().reshape(-1),
               "bias": conv.bias.detach().numpy()}
-    jy = np.asarray(jconv.apply({"params": params}, jnp.asarray(
+    want = np.asarray(jconv.apply({"params": params}, jnp.asarray(
         x.numpy().transpose(0, 2, 1)))).transpose(0, 2, 1)
-    assert jy.shape == got.shape
+    assert got.shape == want.shape == (2, w.shape[1], 37 * ratio)
+    assert _rel_l2(got, want) <= FWD_TOL
+
+    ref = torch.nn.ConvTranspose1d(w.shape[0], w.shape[1], 2 * ratio,
+                                   ratio, ratio // 2 + ratio % 2,
+                                   ratio % 2)
+    with torch.no_grad():
+        ref.weight.copy_(w)
+        ref.bias.copy_(conv.bias)
+        torch_y = ref(x).numpy()
     cut = got.shape[-1] - ratio % 2
-    assert np.abs(jy[..., :cut] - got[..., :cut]).max() <= (
-        1e-5 * np.abs(want).max())
+    assert np.abs(got[..., :cut] - torch_y[..., :cut]).max() <= (
+        1e-6 * np.abs(torch_y).max())
     if ratio % 2:
         np.testing.assert_array_equal(
-            jy[..., -1], np.broadcast_to(params["bias"], jy[..., -1].shape))
-        assert np.abs(got[..., -1] - jy[..., -1]).max() > 1e-3
+            got[..., -1], np.broadcast_to(params["bias"][None],
+                                          got[..., -1].shape))
+        assert np.abs(torch_y[..., -1] - got[..., -1]).max() > 1e-3
+
+    lr = (0.1 * np.random.default_rng(8).standard_normal((1, 1, 301))
+          ).astype(np.float32)
     with torch.no_grad():
-        y = port(torch.from_numpy((0.1 * np.random.default_rng(8)
-                                   .standard_normal((1, 1, 301)))
-                                  .astype(np.float32)))
-    assert y.shape == (1, 1, 4 * 301) and torch.isfinite(y).all()
+        y = port(torch.from_numpy(lr)).numpy()
+    jgen = JaxSeanet(**dict(NARROW, ratios=(3, 2)))
+    jy = np.asarray(jgen.apply(pckpt.seanet_variables(port.state_dict()),
+                               jnp.asarray(lr)))
+    assert y.shape == jy.shape == (1, 1, 4 * 301)
+    assert _rel_l2(y, jy) <= FWD_TOL
 
 
 def test_predict_serves_port_written_seanet(tmp_path, monkeypatch):
