@@ -41,4 +41,4 @@ cudaError_t local_attention_bwd_mma(const void* q, const void* k, const void* v,
 // Expands CASE(C) once per head width the kernels are instantiated for.
 // Keep in step with KERNEL_WIDTHS in aero_tpu_torch/ops/attention.py.
 #define AERO_FOR_EACH_WIDTH(CASE) \
-  CASE(2) CASE(4) CASE(8) CASE(12) CASE(16) CASE(24) CASE(32)
+  CASE(2) CASE(4) CASE(8) CASE(12) CASE(16) CASE(24) CASE(32) CASE(48)

@@ -41,7 +41,9 @@
 // Only tiles on the diagonal, T or a band edge run the masks (a warp-
 // uniform branch); tiles wholly outside a warp's band are skipped. Rows
 // are padded to the MMA depth + 8 against bank conflicts, channels zero-
-// padded to the depth (16 for C' <= 16, else 32), as in the forward.
+// padded to the depth (the next multiple of 16: 16, 32 or 48), as in the
+// forward. At C' = 48 each of the dq, dk and dv accumulators is 6 n8 tiles
+// (24 floats a thread), 1.5x width 32's.
 
 #include "local_attention.cuh"
 #include "mma.cuh"
@@ -66,10 +68,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Widths of one head: MMA depth, row stride and cp.async pieces.
 template <int C>
 struct Width {
-  static constexpr int kDepth = C <= 16 ? 16 : 32;  // channels zero-padded
-  static constexpr int kSteps = kDepth / 16;        // k16 steps over C'
-  static constexpr int kChan = kDepth / 8;          // n8 channel tiles
-  static constexpr int kLd = kDepth + 8;            // shared row stride (bf16)
+  static constexpr int kDepth = (C + 15) / 16 * 16;  // channels zero-padded
+  static constexpr int kSteps = kDepth / 16;         // k16 steps over C'
+  static constexpr int kChan = kDepth / 8;           // n8 channel tiles
+  static constexpr int kLd = kDepth + 8;             // shared row stride (bf16)
   static constexpr int kChunk = (2 * C) % 16 == 0 ? 16 : ((2 * C) % 8 == 0 ? 8 : 4);
   static constexpr int kChunks = 2 * C / kChunk;  // cp.async pieces per row
   static constexpr int kPad = kLd - C;

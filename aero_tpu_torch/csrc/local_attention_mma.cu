@@ -23,11 +23,14 @@
 // Design (FlashAttention-2's shape):
 // - a block owns 64 queries of one row, 16 per warp; each warp keeps its
 //   Q fragment in registers for the whole launch, the C' channels zero-
-//   padded to the MMA depth (16 for C' <= 16, else 32);
+//   padded to the MMA depth, the next multiple of 16 (16, 32 or 48: at
+//   C' = 48, three k16 steps of Q K^T and six n8 output tiles of P V);
 // - K/V tiles of 64 keys stream through shared memory as bfloat16 with
 //   cp.async (pieces of 16, 8 or 4 bytes: a row of C' = 12 is 24 bytes),
 //   double-buffered, one barrier per tile; rows padded to depth + 8 so the
-//   fragment reads hit 32 distinct banks; the padding stays zero;
+//   fragment reads hit 32 distinct banks (a row is 12, 20 or 28 words:
+//   the 8 rows g of a fragment start 4 banks apart); the padding stays
+//   zero;
 // - S = Q K^T with mma.m16n8k16 (float32 sums), then per element the decay
 //   and the log2(e) scale in one FMA: the softmax runs in the exp2 domain
 //   on ex2.approx, the -100 sentinel scaled alike, the lse converted back
@@ -93,10 +96,10 @@ local_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
                                const bf16* __restrict__ v, const float* __restrict__ w,
                                bf16* __restrict__ out, float* __restrict__ lse,
                                int t_len, int band) {
-  constexpr int kDepth = C <= 16 ? 16 : 32;  // MMA depth, channels zero-padded
-  constexpr int kSteps = kDepth / 16;        // k16 steps of Q K^T
-  constexpr int kChan = kDepth / 8;          // n8 channel tiles of P V
-  constexpr int kLd = kDepth + 8;            // shared row stride (bf16)
+  constexpr int kDepth = (C + 15) / 16 * 16;  // MMA depth, channels zero-padded
+  constexpr int kSteps = kDepth / 16;         // k16 steps of Q K^T
+  constexpr int kChan = kDepth / 8;           // n8 channel tiles of P V
+  constexpr int kLd = kDepth + 8;             // shared row stride (bf16)
   constexpr int kChunk = (2 * C) % 16 == 0 ? 16 : ((2 * C) % 8 == 0 ? 8 : 4);
   constexpr int kChunks = 2 * C / kChunk;    // cp.async pieces per key row
   constexpr int kPad = kLd - C;

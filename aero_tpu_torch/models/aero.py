@@ -1,11 +1,12 @@
 """The AERO generator in PyTorch (port of ``aero_tpu/models/aero.py``).
 
 A complex-spectrogram U-Net for bandwidth extension: analysis STFT with the
-small hop/window, complex-as-channels, global mean/std normalisation, four
-frequency-strided encoders (FTB, conv, GroupNorm, GELU, DConv, 1x1 rewrite
-with GLU), a zeroed bottleneck, decoders over cat(x, skip) with
-frequency-axis transposed convs, de-normalisation and the synthesis iSTFT
-with the large hop/window. Spectra are ``[B, C, F, T]``.
+small hop/window, complex-as-channels, global mean/std normalisation,
+strided encoders (FTB, conv, GroupNorm, GELU, DConv, 1x1 rewrite with GLU),
+a zeroed bottleneck, decoders over cat(x, skip) (rewrite, GLU, DConv with
+``dconv_mode & 2``, transposed conv), de-normalisation and the synthesis
+iSTFT with the large hop/window. Layers up to ``freq_ends`` stride the
+frequency axis, later ones the time axis. Spectra are ``[B, C, F, T]``.
 
 Dtype policy: STFT, normalisation, de-normalisation and iSTFT in float32;
 the U-Net in ``compute_dtype`` (float32 or bfloat16), with float32
@@ -14,6 +15,7 @@ parameters cast per layer.
 
 from __future__ import annotations
 
+import logging
 import typing as tp
 
 import torch
@@ -21,13 +23,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from aero_tpu_torch.models.modules import (
-    FTB, Conv2d, ConvTranspose2dFreq, DConv, GroupNorm, ScaledEmbedding,
+    FTB, Conv2d, ConvTranspose2dFreq, ConvTranspose2dTime, DConv, GroupNorm,
+    ScaledEmbedding,
 )
 from aero_tpu_torch.ops.spec import ispectro, spectro
 
+logger = logging.getLogger(__name__)
+
 
 class HEncLayer(nn.Module):
-    """Encoder layer on the frequency axis (``aero.py:43-107``)."""
+    """Encoder layer (``aero.py:43-107``): on the frequency axis a (k, 1)
+    conv of stride (s, 1); on the time axis (``freq`` false) T padded to a
+    multiple of s, then a (1, k) conv of stride (1, s)."""
 
     def __init__(self, chin: int, chout: int, kernel_size: int = 8,
                  stride: int = 4, norm_groups: int = 1, freq: bool = True,
@@ -35,19 +42,21 @@ class HEncLayer(nn.Module):
                  freq_attn: bool = False, freq_dim=None, norm: bool = True,
                  context: int = 0, dconv_kw=None, rewrite: bool = True):
         super().__init__()
-        if not freq:
-            raise NotImplementedError("HEncLayer: time-axis layers "
-                                      "(freq_ends < depth) are not ported")
         if stride == 1 and kernel_size % 2 == 0 and kernel_size > 1:
             kernel_size -= 1
         pad = (kernel_size - stride) // 2
+        self.freq, self.stride = freq, stride
         self.pre_conv = Conv2d(chin, chout, 1) if is_first else None
         if is_first:
             chin = chout
         self.freq_attn_block = (FTB(input_dim=freq_dim, in_channel=chin)
                                 if freq_attn else None)
-        self.conv = Conv2d(chin, chout, (kernel_size, 1), (stride, 1),
-                           (pad, 0))
+        if freq:
+            self.conv = Conv2d(chin, chout, (kernel_size, 1), (stride, 1),
+                               (pad, 0))
+        else:
+            self.conv = Conv2d(chin, chout, (1, kernel_size), (1, stride),
+                               (0, pad))
         self.norm1 = GroupNorm(norm_groups, chout) if norm else nn.Identity()
         self.dconv = DConv(chout, **dict(dconv_kw or {})) if dconv else None
         self.rewrite = None
@@ -58,6 +67,8 @@ class HEncLayer(nn.Module):
                           else nn.Identity())
 
     def forward(self, x):
+        if not self.freq and x.shape[-1] % self.stride:
+            x = F.pad(x, (0, self.stride - x.shape[-1] % self.stride))
         if self.pre_conv is not None:
             x = self.pre_conv(x)
         if self.freq_attn_block is not None:
@@ -71,36 +82,41 @@ class HEncLayer(nn.Module):
 
 
 class HDecLayer(nn.Module):
-    """Decoder layer without DConv (``aero.py:110-176``): 3x3 rewrite over
-    cat(x, skip), GLU, transposed conv on the frequency axis, GroupNorm,
-    trim."""
+    """Decoder layer (``aero.py:110-176``): 3x3 rewrite over cat(x, skip),
+    GLU, DConv on its output (``dconv``), then the transposed conv, on the
+    frequency axis trimmed by the padding, on the time axis (``freq``
+    false) trimmed to the encoder's input length; GroupNorm, GELU but in
+    the last layer."""
 
     def __init__(self, chin: int, chout: int, last: bool = False,
                  kernel_size: int = 8, stride: int = 4, norm_groups: int = 1,
-                 freq: bool = True, norm: bool = True, context: int = 1,
-                 rewrite: bool = True):
+                 freq: bool = True, dconv: bool = False, norm: bool = True,
+                 context: int = 1, dconv_kw=None, rewrite: bool = True):
         super().__init__()
-        if not freq:
-            raise NotImplementedError("HDecLayer: time-axis layers "
-                                      "(freq_ends < depth) are not ported")
         if stride == 1 and kernel_size % 2 == 0 and kernel_size > 1:
             kernel_size -= 1
         self.pad = (kernel_size - stride) // 2
-        self.last = last
+        self.last, self.freq = last, freq
         self.rewrite = None
         if rewrite:
             self.rewrite = Conv2d(chin, 2 * chin, 1 + 2 * context, 1, context)
             self.norm1 = (GroupNorm(norm_groups, 2 * chin) if norm
                           else nn.Identity())
-        self.conv_tr = ConvTranspose2dFreq(chin, chout, kernel_size, stride)
+        self.dconv = DConv(chin, **dict(dconv_kw or {})) if dconv else None
+        conv_tr = ConvTranspose2dFreq if freq else ConvTranspose2dTime
+        self.conv_tr = conv_tr(chin, chout, kernel_size, stride)
         self.norm2 = GroupNorm(norm_groups, chout) if norm else nn.Identity()
 
-    def forward(self, x, skip):
+    def forward(self, x, skip, length: int):
         y = torch.cat([x, skip], dim=1)
         if self.rewrite is not None:
             y = F.glu(self.norm1(self.rewrite(y)), dim=1)
+        if self.dconv is not None:
+            y = self.dconv(y)
         z = self.norm2(self.conv_tr(y))
-        if self.pad:
+        if not self.freq:
+            z = z[..., self.pad:self.pad + length]
+        elif self.pad:
             z = z[:, :, self.pad:-self.pad]
         return z if self.last else F.gelu(z)
 
@@ -126,9 +142,6 @@ class Aero(nn.Module):
                  spec_upsample: bool = True, act_func: str = "snake",
                  debug: bool = False, compute_dtype=torch.float32):
         super().__init__()
-        if dconv_mode & 2:
-            raise NotImplementedError("Aero: decoder DConv (dconv_mode & 2) "
-                                      "is not ported")
         self.in_channels, self.out_channels = in_channels, out_channels
         self.channels, self.growth = channels, growth
         self.nfft, self.hop_length, self.cac = nfft, hop_length, cac
@@ -143,7 +156,7 @@ class Aero(nn.Module):
         self.dconv_lstm, self.dconv_init = dconv_lstm, dconv_init
         self.lr_sr, self.hr_sr = lr_sr, hr_sr
         self.spec_upsample, self.act_func = spec_upsample, act_func
-        self.compute_dtype = compute_dtype
+        self.debug, self.compute_dtype = debug, compute_dtype
 
         plan = self._layer_plan()
         self.encoder = nn.ModuleList()
@@ -154,10 +167,9 @@ class Aero(nn.Module):
                 context=context_enc, is_first=p["index"] == 0,
                 freq_attn=p["freq_attn"], freq_dim=p["freqs_in"], **p["kw"]))
         for p in reversed(plan):
-            kw = {k: v for k, v in p["kw"].items() if k != "dconv_kw"}
             self.decoder.append(HDecLayer(
                 2 * p["chout"], p["dec_chout"], last=p["index"] == 0,
-                context=context, **kw))
+                dconv=bool(dconv_mode & 2), context=context, **p["kw"]))
         self.freq_emb = None
         if freq_emb:
             first = plan[0]
@@ -210,6 +222,13 @@ class Aero(nn.Module):
                 freqs //= stri
         return plan
 
+    def _log(self, what: str, x) -> None:
+        """``debug``: one line per stage with the tensor's shape, as the JAX
+        package logs them (``aero.py:320-397``; its spectra are
+        channels-last, these [B, C, F, T])."""
+        if self.debug:
+            logger.info(f"{what}: {tuple(x.shape)}")
+
     def _spec(self, x, scale: bool = False):
         """Analysis STFT; ``scale`` takes hop and window at the hr rate (the
         spectrum of an hr signal on the generator's own grid)."""
@@ -235,17 +254,21 @@ class Aero(nn.Module):
         if mix.dim() == 2:
             mix = mix[:, None, :]
         length = mix.shape[-1]
+        self._log("aero in shape", mix)
         z = self._spec(mix)                                   # [B, C, F, T]
         b, c, f, t = z.shape
         # complex as channels, ordered (c0_re, c0_im, c1_re, ...)
         x = torch.view_as_real(z).permute(0, 1, 4, 2, 3).reshape(b, 2 * c, f, t)
+        self._log("x spec shape", x)
         mean = x.mean(dim=(1, 2, 3), keepdim=True)
         std = x.std(dim=(1, 2, 3), keepdim=True)              # unbiased
         x = ((x - mean) / (1e-5 + std)).to(self.compute_dtype)
 
-        saved = []
+        saved, lengths = [], []
         for index, enc in enumerate(self.encoder):
+            lengths.append(x.shape[-1])
             x = enc(x)
+            self._log(f"encoder {index} out shape", x)
             if index == 0 and self.freq_emb is not None:
                 frs = torch.arange(x.shape[2], device=x.device)
                 emb = self.freq_emb(frs).t()[None, :, :, None].to(x.dtype)
@@ -253,13 +276,18 @@ class Aero(nn.Module):
             saved.append(x)
 
         x = torch.zeros_like(x)  # the signal flows through the skips
-        for dec in self.decoder:
-            x = dec(x, saved.pop(-1))
+        for j, dec in enumerate(self.decoder):
+            x = dec(x, saved.pop(-1), lengths.pop(-1))
+            self._log(f"decoder {j} out shape", x)
 
         x = x.float() * std + mean
         x = x.reshape(b, self.out_channels, 2, f, t).permute(0, 1, 3, 4, 2)
         x_spec = torch.view_as_complex(x.contiguous())
-        out = self._ispec(x_spec)[..., :int(length * self.scale)]
+        self._log("x_spec_complex shape", x_spec)
+        out = self._ispec(x_spec)
+        self._log("aero out shape", out)
+        out = out[..., :int(length * self.scale)]
+        self._log("aero out - trimmed shape", out)
         if return_spec:
             return out, x_spec, z
         return out

@@ -60,6 +60,18 @@ class ConvTranspose2dFreq(nn.ConvTranspose2d):
                                   _cast(self.bias, x.dtype), self.stride)
 
 
+class ConvTranspose2dTime(nn.ConvTranspose2d):
+    """Transposed conv over the time axis of [B, C, F, T]: kernel (1, k),
+    stride (1, s), weight [in, out, 1, k] (``modules.py:442-456``)."""
+
+    def __init__(self, chin: int, chout: int, kernel_size: int, stride: int):
+        super().__init__(chin, chout, (1, kernel_size), (1, stride))
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight.to(x.dtype),
+                                  _cast(self.bias, x.dtype), self.stride)
+
+
 class Linear(nn.Linear):
     def forward(self, x):
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
@@ -290,68 +302,95 @@ class BLSTM(nn.Module):
 
 class LocalState(nn.Module):
     """Local attention with learned distance decay on [N, C, T]
-    (``modules.py:821-974``). The four 1x1 projections run as one conv;
-    the reference's [ndecay, T, T] decay kernel is folded into the
-    per-query ``decay_w`` (rank 1 in (t, s)); the attention itself goes to
-    ``ops.attention.local_attention``."""
+    (``modules.py:821-974``). The 1x1 projections run as one conv; the
+    reference's [ndecay, T, T] decay kernel is folded into the per-query
+    ``decay_w`` (rank 1 in (t, s)), zero without ``ndecay``. The attention
+    goes to ``ops.attention.local_attention`` (the kernels on the card), or
+    with ``nfreqs`` to ``ops.attention.periodic_attention``, the plain
+    version on every device, as the JAX package runs no kernel for it."""
 
     def __init__(self, channels: int, heads: int = 4, ndecay: int = 4,
                  nfreqs: int = 0):
         super().__init__()
-        if nfreqs or not ndecay:
-            raise NotImplementedError("LocalState: only nfreqs = 0 and "
-                                      "ndecay > 0 are ported")
         if channels % heads:
             raise ValueError(f"LocalState: {channels} channels, {heads} heads")
         self.heads = heads
         self.ndecay = ndecay
+        self.nfreqs = nfreqs
         self.content = Conv1d(channels, channels, 1)
         self.query = Conv1d(channels, channels, 1)
         self.key = Conv1d(channels, channels, 1)
-        self.query_decay = Conv1d(channels, heads * ndecay, 1)
+        if nfreqs:
+            self.query_freqs = Conv1d(channels, heads * nfreqs, 1)
+        if ndecay:
+            self.query_decay = Conv1d(channels, heads * ndecay, 1)
         self.proj = Conv1d(channels, channels, 1)
 
     def forward(self, x):
         n, c, t = x.shape
         heads, ch = self.heads, c // self.heads
-        mods = (self.content, self.query, self.key, self.query_decay)
+        mods = [self.content, self.query, self.key]
+        if self.ndecay:
+            mods.append(self.query_decay)
+        if self.nfreqs:
+            mods.append(self.query_freqs)
         w = torch.cat([m.weight for m in mods]).to(x.dtype)
         b = torch.cat([m.bias for m in mods]).to(x.dtype)
-        y = F.conv1d(x, w, b).transpose(1, 2)  # [N, T, 3C + H*ndecay]
+        y = F.conv1d(x, w, b).transpose(1, 2)  # [N, T, 3C + H*(ndecay+nfreqs)]
         content = y[..., :c].reshape(n, t, heads, ch)
         queries = (y[..., c:2 * c] / math.sqrt(ch)).reshape(n, t, heads, ch)
         keys = y[..., 2 * c:3 * c].reshape(n, t, heads, ch)
-        decay_q = torch.sigmoid(
-            y[..., 3 * c:].reshape(n, t, heads, self.ndecay)) / 2
-        decays = torch.arange(1, self.ndecay + 1, dtype=x.dtype,
-                              device=x.device)
-        decay_w = (decay_q * decays).sum(-1) / math.sqrt(self.ndecay)
-        # AERO_ATTN_BAND=W: banded attention where t > 2W, as the JAX
-        # package dispatches (modules.py:908-918), in training too
-        band = attention.band_from_env()
-        if band > 0 and t <= 2 * band:
-            logger.warning(
-                "AERO_ATTN_BAND=%d requested but attention site t=%d "
-                "nfreqs=%d runs EXACT (band needs t > 2*band and "
-                "nfreqs=0)", band, t, 0)
-            band = 0
-        result = attention.local_attention(queries, keys, content, decay_w,
-                                           band=band)
+        end = 3 * c + heads * self.ndecay
+        if self.ndecay:
+            decay_q = torch.sigmoid(
+                y[..., 3 * c:end].reshape(n, t, heads, self.ndecay)) / 2
+            decays = torch.arange(1, self.ndecay + 1, dtype=x.dtype,
+                                  device=x.device)
+            decay_w = (decay_q * decays).sum(-1) / math.sqrt(self.ndecay)
+        else:
+            decay_w = x.new_zeros(n, t, heads)
+        band = self._band(t)
+        if self.nfreqs:
+            freq_q = y[..., end:].reshape(n, t, heads, self.nfreqs) \
+                / math.sqrt(self.nfreqs)
+            result = attention.periodic_attention(queries, keys, content,
+                                                  decay_w, freq_q)
+        else:
+            result = attention.local_attention(queries, keys, content,
+                                               decay_w, band=band)
         result = result.reshape(n, t, c).transpose(1, 2)
         return x + self.proj(result)
 
+    def _band(self, t: int) -> int:
+        """AERO_ATTN_BAND=W: banded attention where t > 2W and without
+        ``nfreqs``, as the JAX package dispatches (modules.py:908-918), in
+        training too; else a warning and 0 (exact attention)."""
+        band = attention.band_from_env()
+        if band > 0 and (self.nfreqs or t <= 2 * band):
+            logger.warning(
+                "AERO_ATTN_BAND=%d requested but attention site t=%d "
+                "nfreqs=%d runs EXACT (band needs t > 2*band and "
+                "nfreqs=0)", band, t, self.nfreqs)
+            band = 0
+        return band
+
 
 class DConvLayer(nn.Module):
-    """One residual step of DConv: dilated k=3 conv, GroupNorm, Snake,
-    optional BLSTM and LocalState, 1x1 conv, GroupNorm, GLU, LayerScale."""
+    """One residual step of DConv: dilated k=3 conv, GroupNorm, Snake (or
+    GELU or ReLU), optional BLSTM and LocalState, 1x1 conv, GroupNorm, GLU,
+    LayerScale."""
 
     def __init__(self, channels: int, hidden: int, dilation: int, freq_dim,
-                 lstm: bool, time_attn: bool, init_value: float):
+                 lstm: bool, time_attn: bool, init_value: float,
+                 act_func: str = "snake"):
         super().__init__()
         self.conv1 = nn.Sequential(
             Conv1d(channels, hidden, 3, padding=dilation, dilation=dilation),
             GroupNorm(1, hidden))
-        self.act = Snake(freq_dim)
+        # GELU in its exact erf form; anything but snake or gelu is ReLU,
+        # as in the JAX package
+        self.act = (Snake(freq_dim) if act_func == "snake" else
+                    nn.GELU() if act_func == "gelu" else nn.ReLU())
         self.lstm = BLSTM(hidden) if lstm else None
         self.time_attn = LocalState(hidden) if time_attn else None
         self.conv2 = nn.Sequential(Conv1d(hidden, 2 * channels, 1),
@@ -369,8 +408,8 @@ class DConvLayer(nn.Module):
 
 class DConv(nn.Module):
     """Residual branch of dilated convs + optional BLSTM + local attention
-    (``modules.py:1103-1175``) with Snake activations, as every experiment
-    config sets. Input [B, C, F, T]; each frequency row runs as its own
+    (``modules.py:1103-1175``) with Snake, GELU or ReLU activations
+    (``act_func``). Input [B, C, F, T]; each frequency row runs as its own
     sequence ([B*F, C, T]), and Snake's ``a`` is per frequency."""
 
     def __init__(self, channels: int, freq_dim: int, compress: float = 4,
@@ -378,13 +417,10 @@ class DConv(nn.Module):
                  time_attn: bool = False, lstm: bool = False,
                  act_func: str = "snake"):
         super().__init__()
-        if act_func != "snake":
-            raise NotImplementedError(f"DConv: act_func {act_func!r} is not "
-                                      "ported (only snake)")
         hidden = int(channels / compress)
         self.layers = nn.ModuleList([
             DConvLayer(channels, hidden, 2 ** d if depth > 0 else 1, freq_dim,
-                       lstm, time_attn, init_value)
+                       lstm, time_attn, init_value, act_func)
             for d in range(abs(depth))])
 
     def forward(self, x):

@@ -19,12 +19,21 @@ With a band W > 0 (``AERO_ATTN_BAND``, ``aero_tpu/ops/attention.py:103``),
 keys with |t - s| > W leave the softmax (score -inf), and the gradient is
 that of the banded operator.
 
+A ``LocalState`` with ``nfreqs`` > 0 adds a periodic bias to the scores,
+
+    scores[t, s] += sum_f cos(2 pi (t - s) / (f + 1)) * fq[s, f]
+
+(``aero_tpu/models/modules.py:804-812``). The JAX package runs no kernel
+for it (``modules.py:930``), and neither does the port:
+``periodic_attention`` is the plain version on every device, counted.
+
 Every public function takes the JAX package's layout: q/k/v ``[B, T, H, C']``
 and the per-query decay ``w`` ``[B, T, H]``; outputs match.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -32,7 +41,7 @@ import torch
 from aero_tpu_torch.ops import _build
 
 # Head widths the CUDA kernels are instantiated for (csrc/local_attention.cuh).
-KERNEL_WIDTHS = (2, 4, 8, 12, 16, 24, 32)
+KERNEL_WIDTHS = (2, 4, 8, 12, 16, 24, 32, 48)
 
 
 def forward_route(dtype, c: int) -> str:
@@ -65,14 +74,22 @@ def band_from_env() -> int:
     return int(os.environ.get("AERO_ATTN_BAND", "0") or 0)
 
 
-def _scores(qf, kf, wf, t_idx, s0, s1, band=0, lo=0, hi=None):
+def _scores(qf, kf, wf, t_idx, s0, s1, band=0, lo=0, hi=None, fq=None):
     """f32 scores [B, H, K, S] of queries s0:s1 against the keys lo:hi, the
     distances |t - s| [K, S] and the diagonal mask [K, S]; with a band,
-    -inf where |t - s| > band."""
+    -inf where |t - s| > band; with ``fq`` (f32 [B, H, nfreqs, T]) the
+    periodic bias of the module docstring."""
     s_idx, k_idx = t_idx[s0:s1], t_idx[lo:hi]
     scores = torch.einsum("bthc,bshc->bhts", kf[:, lo:hi], qf[:, s0:s1])
-    delta = (k_idx[:, None] - s_idx[None, :]).abs()
+    sdelta = k_idx[:, None] - s_idx[None, :]
+    delta = sdelta.abs()
     scores = scores - delta * wf[:, :, None, s0:s1]
+    if fq is not None:
+        periods = torch.arange(1, fq.shape[2] + 1, device=fq.device,
+                               dtype=torch.float32)
+        kernel = torch.cos(2 * math.pi * sdelta[None] / periods[:, None, None])
+        scores = scores + torch.einsum("fts,bhfs->bhts", kernel,
+                                       fq[..., s0:s1])
     diag = k_idx[:, None] == s_idx[None, :]
     scores = scores.masked_fill(diag, -100.0)
     if band > 0:
@@ -80,22 +97,25 @@ def _scores(qf, kf, wf, t_idx, s0, s1, band=0, lo=0, hi=None):
     return scores, delta, diag
 
 
-def reference_attention(q, k, v, w, block_q: int = 256):
+def reference_attention(q, k, v, w, block_q: int = 256, freq_q=None):
     """Plain PyTorch forward, over blocks of ``block_q`` queries.
 
     Scores and softmax in float32 (as ``aero_tpu.ops.attention.
     reference_attention``); the probabilities are cast to v's dtype before
     the weighted sum. Peak memory is O(B*H*T*block_q), so T = 2501 at the
     serving batch fits on the card where a dense [B*H, T, T] would not.
-    Differentiable by autograd.
+    ``freq_q`` [B, T, H, nfreqs] adds the periodic bias. Differentiable by
+    autograd.
     """
     t = q.shape[1]
     qf, kf, vf = q.float(), k.float(), v.float()
     wf = w.float().permute(0, 2, 1)  # [B, H, T]
+    fq = None if freq_q is None else freq_q.float().permute(0, 2, 3, 1)
     t_idx = torch.arange(t, device=q.device, dtype=torch.float32)
     outs = []
     for s0 in range(0, t, block_q):
-        scores, _, _ = _scores(qf, kf, wf, t_idx, s0, min(s0 + block_q, t))
+        scores, _, _ = _scores(qf, kf, wf, t_idx, s0, min(s0 + block_q, t),
+                               fq=fq)
         p = torch.softmax(scores, dim=2).to(v.dtype).float()
         outs.append(torch.einsum("bhts,bthc->bshc", p, vf))
     return torch.cat(outs, dim=1).to(v.dtype)
@@ -278,6 +298,18 @@ def local_attention(q, k, v, w, band: int = 0):
                          _fold_w(w, b, t, h), with_lse=False, band=band)
     return _unfold(out, b, t, h, c)
 
+
+def periodic_attention(q, k, v, w, freq_q):
+    """LocalState attention with the periodic bias of ``freq_q`` [B, T, H,
+    nfreqs]: ``reference_attention`` on any device, the route the JAX
+    package takes for ``nfreqs`` (``aero_tpu/models/modules.py:930``). No
+    kernel exists for it: each call adds one to ``periodic_attention.calls``
+    and launches nothing."""
+    periodic_attention.calls += 1
+    return reference_attention(q, k, v, w, freq_q=freq_q)
+
+
+periodic_attention.calls = 0
 
 local_attention.launches = 0           # forward kernel launches
 local_attention.mma_launches = 0       # ... of them on the tensor cores

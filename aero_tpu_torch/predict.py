@@ -5,7 +5,8 @@ Usage::
     python -m aero_tpu_torch.predict experiment=aero_4-16_512_64 dset=4-16 \\
         +filename=<in.wav> +output=<dir> [checkpoint_file=<.atpu or .th>] \\
         [continue_best=true] [precision=bfloat16] [device=cuda|cpu] \\
-        [batch_chunks=false] [+pad_tail_to_chunk=1] [+devices=[cuda:0,cuda:1]]
+        [batch_chunks=false] [+pad_tail_to_chunk=1] [+devices=[cuda:0,cuda:1]] \\
+        [experiment.upsample=true experiment.aero.spec_upsample=false]
 
 (``experiment=seanet_4-16`` serves Seanet the same way.)
 
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from aero_tpu_torch.data import audio_io
+from aero_tpu_torch.data.resample import resample_np
 from aero_tpu_torch.eval.forward import ChunkedInference, EvalForward
 from aero_tpu_torch.train.build import load_generator_state
 
@@ -83,18 +85,22 @@ def write_wav(wav: np.ndarray, filename: str, sr: int) -> None:
 def predict_file(gen: torch.nn.Module, filename: str, output_dir: str,
                  lr_sr: int, hr_sr: int, device, bucket_s: float = 1.0,
                  batch_chunks: bool = True, pad_tail: bool = False,
-                 devices: tp.Sequence = ()) -> dict:
+                 devices: tp.Sequence = (), upsample: bool = False) -> dict:
     """Upsample one WAV file with ``gen`` (on ``device``); returns the
     output path, sample counts, the timed seconds and the realtime factor.
-    With two or more ``devices`` (``device`` among them or not) a replica
-    of ``gen`` on each serves its part of the batch of full chunks. One
-    untimed run first warms both shapes (the batched chunks and the ragged
-    tail)."""
+    With ``upsample`` the file is first resampled to ``hr_sr`` on the host
+    and ``gen`` runs at scale 1 (the repository's ``predict.py:70-76``; a
+    generator with ``spec_upsample`` false keeps that length). With two or
+    more ``devices`` (``device`` among them or not) a replica of ``gen`` on
+    each serves its part of the batch of full chunks. One untimed run first
+    warms both shapes (the batched chunks and the ragged tail)."""
     device = torch.device(device)
     lr_sig, sr = audio_io.load(filename)
     if sr != lr_sr:
         raise ValueError(f"{filename}: sample rate {sr}, expected {lr_sr}")
     scale = hr_sr / lr_sr
+    if upsample:
+        lr_sig, sr, scale = resample_np(lr_sig, sr, hr_sr), hr_sr, 1.0
 
     def forward(model, on):
         return EvalForward(model, scale=scale, lr_sr=sr, device=on,
@@ -136,8 +142,6 @@ def main(argv=None) -> dict:
     args = load_config(str(CONF_DIR), "main_config",
                        list(sys.argv[1:] if argv is None else argv))
     exp = args.experiment
-    if exp.get("upsample", False):
-        raise NotImplementedError("upsample=true datasets are not ported")
     device = resolve_device(args.get("device"))
     devices = serving_devices(args, device)
     filename = os.path.abspath(str(args.filename))
@@ -153,7 +157,7 @@ def main(argv=None) -> dict:
                             float(args.get("eval_bucket_s", 1.0)),
                             bool(args.get("batch_chunks", True)),
                             bool(args.get("pad_tail_to_chunk", False)),
-                            devices)
+                            devices, bool(exp.get("upsample", False)))
     finally:
         os.chdir(cwd)
 

@@ -4,7 +4,8 @@ Usage::
 
     python -m aero_tpu_torch.train experiment=aero_4-16_512_64 dset=4-16 \\
         [dset.train=<egs dir> dset.valid=<egs dir> dset.test=<egs dir>] \\
-        [epochs=N] [cross_valid=true] [precision=bfloat16] [device=cuda|cpu]
+        [epochs=N] [cross_valid=true] [precision=bfloat16] [device=cuda|cpu] \\
+        [profile=true [profile_dir=<dir>]] [debug_nans=true]
 
 The same ``conf/`` and overrides as ``train.py``. Changes into the run
 directory ``outputs/<dset>/<experiment>/``, where the checkpoints, the
@@ -44,7 +45,7 @@ from aero_tpu_torch.parallel import mesh
 from aero_tpu_torch.predict import CONF_DIR, resolve_device
 from aero_tpu_torch.train.build import build_models
 from aero_tpu_torch.train.solver import Solver
-from aero_tpu_torch.utils import wandb_logger
+from aero_tpu_torch.utils import profiling, wandb_logger
 from aero_tpu_torch.utils.log import setup_logging
 
 logger = logging.getLogger(__name__)
@@ -158,7 +159,8 @@ def run(args, device):
         data["cv_loader"] = eval_loader(args, args.dset.valid, False)
     if args.dset.get("test"):
         data["tt_loader"] = eval_loader(args, args.dset.test, True)
-    history = Solver(data, models, args, device).train()
+    with profiling.enable_nan_debugging(bool(args.get("debug_nans"))):
+        history = Solver(data, models, args, device).train()
     wandb_logger.finish()
     return history
 

@@ -154,8 +154,10 @@ def _conv_to_flax(w):  # torch [out, in, *k] -> flax (*k, in, out)
     return np.transpose(w, (2, 1, 0) if w.ndim == 3 else (2, 3, 1, 0))
 
 
-def _convtr_to_flax(w):  # torch [in, out, k, 1] -> flax (k, in, out)
-    return np.transpose(w[..., 0], (2, 0, 1))
+def _convtr_to_flax(w):  # [in, out, k, 1] (freq) or [in, out, 1, k] (time)
+    # -> flax (k, in, out)
+    return np.transpose(w[..., 0] if w.shape[-1] == 1 else w[:, :, 0],
+                        (2, 0, 1))
 
 
 def _transpose(w):

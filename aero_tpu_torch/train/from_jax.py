@@ -21,7 +21,8 @@ inverted), and the HiFi discriminators' map; it uses numpy only.
 
 Layout transforms (flax -> torch):
 - Conv{1,2}d kernel (*k, in, out)      -> weight [out, in, *k]
-- ConvTranspose kernel (k, in, out)    -> weight [in, out, k, 1]
+- ConvTranspose kernel (k, in, out)    -> weight [in, out, k, 1] (freq
+  axis) or [in, out, 1, k] (time axis)
 - Dense kernel [in, out]               -> weight [out, in]
 - LSTM w_ih/w_hh [in, 4H]              -> weight [4H, in]
 - weight norm v (*k, in, out), g [out] -> weight_v [out, in, *k],
@@ -58,6 +59,10 @@ def _conv(w):  # flax (*k, in, out) -> torch [out, in, *k]
 
 def _convtr_freq(w):  # flax (k, in, out) -> torch [in, out, k, 1]
     return np.transpose(np.asarray(w), (1, 2, 0))[..., None]
+
+
+def _convtr_time(w):  # flax (k, in, out) -> torch [in, out, 1, k]
+    return np.transpose(np.asarray(w), (1, 2, 0))[:, :, None]
 
 
 def _linear(w):  # flax [in, out] -> torch [out, in]
@@ -163,14 +168,35 @@ def _walk(tree, prefix=()):
         yield prefix, tree
 
 
+def time_decoders(params) -> tp.Set[str]:
+    """The ``decoder_j`` of JAX Aero ``params`` that run on the time axis:
+    the mirrors of the encoders whose conv kernel is (1, k > 1, in, out)
+    (``aero.py:83-88``). A freq layer's kernel (k, 1) with k = 1 has the
+    same reference layout either way; a tree without the encoders' convs
+    (one module's variables) has none."""
+    depth = sum(bool(re.fullmatch(r"encoder_\d+", k)) for k in params)
+    out = set()
+    for i in range(depth):
+        conv = params[f"encoder_{i}"].get("conv", {}).get("conv", {})
+        shape = np.shape(conv.get("kernel", ()))
+        if len(shape) == 4 and shape[0] == 1 and shape[1] > 1:
+            out.add(f"decoder_{depth - 1 - i}")
+    return out
+
+
 def export_aero_state(variables) -> tp.Dict[str, np.ndarray]:
-    """JAX Aero variables ``{"params", "batch_stats"}`` -> the reference
-    state_dict ``{torch_key: np.ndarray}`` (ConvTranspose weights as the
-    reference's 2-D freq layout ``[in, out, k, 1]``)."""
+    """JAX Aero variables ``{"params", "batch_stats"}`` (or a tree of Adam
+    moments under ``"params"``) -> the reference state_dict ``{torch_key:
+    np.ndarray}``. A decoder's ConvTranspose weight takes the reference's
+    2-D layout: ``[in, out, k, 1]`` on the frequency axis, ``[in, out, 1,
+    k]`` on the time axis (``time_decoders``)."""
     out = {}
+    on_time = time_decoders(variables.get("params", {}))
     for coll in ("params", "batch_stats"):
         for path, leaf in _walk(variables.get(coll, {})):
             key, transform = _aero_torch_key(path)
+            if transform is _convtr_freq and path[0] in on_time:
+                transform = _convtr_time
             out[key] = transform(leaf)
     return out
 

@@ -7,7 +7,9 @@ loss; the test-set evaluation every ``eval_every`` epochs and at the last;
 ``history.json``; and the checkpoints ``checkpoint.atpu`` and ``best.atpu``
 every ``checkpoint_every`` epochs and at the last. A run resumes from its
 checkpoint (or ``continue_from``, an ``.atpu`` or a reference ``.th``) and
-replays its history. Metric names are the JAX package's.
+replays its history. Metric names are the JAX package's. With
+``profile=true`` step 1 of epoch 0 runs under ``utils.profiling.trace``
+into ``profile_dir`` (step 0 warms up), as the JAX Solver traces it.
 
 Valid losses run eagerly at each file's exact length, under
 ``torch.no_grad`` with the generator in eval mode: the generator forward
@@ -46,7 +48,7 @@ from aero_tpu_torch.train import checkpoint as ckpt
 from aero_tpu_torch.train.from_jax import (
     load_torch_package, torch_param_order)
 from aero_tpu_torch.train.train_step import TrainStep
-from aero_tpu_torch.utils import wandb_logger
+from aero_tpu_torch.utils import profiling, wandb_logger
 from aero_tpu_torch.utils.config import to_plain
 from aero_tpu_torch.utils.log import LogProgress, bold, pull_metric
 
@@ -375,10 +377,15 @@ class Solver:
                               name=f"Train | Epoch {epoch + 1}")
         log_every = max(1, len(self.tr_loader) // max(1, self.num_prints))
         sums: dict = {}
+        profile_step = bool(self.args.get("profile", False)) and epoch == 0
         i = -1
         for i, (lr, hr) in enumerate(logprog):
             if i == 0:
                 metrics = self._first_step(lr, hr)
+            elif profile_step and i == 1:  # step 0 warms up; trace step 1
+                with profiling.trace(str(self.args.get("profile_dir",
+                                                       "profile"))):
+                    metrics = self.train_step(lr, hr)
             else:
                 metrics = self.train_step(lr, hr)
             self.step += 1

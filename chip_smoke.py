@@ -15,21 +15,23 @@ prints its time:
    registers and spills, and the instances that spill; a tensor-core
    backward instance at head width 12 or 24 that spills fails;
 3. the LocalState attention forward kernels against their plain PyTorch
-   version at head widths 12 and 24, T = 500 .. 6891, at every width of
-   KERNEL_WIDTHS at T = 777 in bfloat16, and at the serving and train
-   shapes; float32 (TF32 off, the SIMT kernel) to atol 1e-3, bfloat16
-   (the tensor-core kernel, which each bfloat16 call must take) to 3e-2.
-   With a band W (16, 128, and W >= T - 1, which must equal the exact
-   kernel bit for bit) against ``banded_reference_attention`` at T = 501,
-   777, 2501 and 4097 and at the serving shapes;
+   version at head widths 12 and 24, T = 500 .. 6891, at width 48 at T =
+   500, 2501 and 4097, at every width of KERNEL_WIDTHS at T = 777 in
+   bfloat16, and at the serving and train shapes (phase 12's included);
+   float32 (TF32 off, the SIMT kernel) to atol 1e-3, bfloat16 (the
+   tensor-core kernel, which each bfloat16 call must take) to 3e-2. With
+   a band W (16, 128, and at widths 12 and 24 W >= T - 1, which must
+   equal the exact kernel bit for bit) against
+   ``banded_reference_attention`` at T = 500 .. 4097 and at the serving
+   shapes;
 4. the backward kernels through ``torch.autograd.grad`` of
    ``local_attention`` against ``reference_attention_bwd`` (dq, dk, dv, dw
    within tol * max|want|: 1e-4 in float32 on the SIMT kernels, 2e-2 in
    bfloat16 on the tensor-core kernels, which each call must take) and
    the forward's log-sum-exp against ``logsumexp`` of the plain scores,
-   at T = 501 .. 4097 and at the train shapes, exact and with bands 16
-   and 128; a second call on the same inputs must give bit-identical
-   gradients;
+   at T = 501 .. 4097 (width 48: 501 and 2501) and at the train shapes,
+   exact and with bands 16 and 128; a second call on the same inputs must
+   give bit-identical gradients;
 5. the LSTM recurrence kernels (float32 SIMT, bfloat16 tensor cores)
    against ``reference_lstm_recurrence`` at the serving shapes (N 3328 /
    H 48, N 1664 / H 96, T 200), at H 8, 72 and 128 and at ragged N (1000,
@@ -62,7 +64,8 @@ prints its time:
    finite metrics, both networks' weights changed, the median step time
    of 5 after 2 warm-ups, throughput, peak memory, and a profiled step's
    top kernels and idle share;
-8. numbers: per attention call at the train and serving shapes, the
+8. numbers: per attention call at the train and serving shapes (the
+   width-48 decoder's of phase 12 (a) and (b) included), the
    forward and backward kernels' times against their plain versions, the
    library call (scaled_dot_product_attention with a float bias) and the
    bound; per call at the opt-in serving path's shapes, the banded
@@ -80,9 +83,11 @@ prints its time:
 9. the Solver: ``main`` of ``python -m aero_tpu_torch.train``,
    ``aero_tpu_torch.test`` and ``aero_tpu_torch.predict`` in this process
    on 40 dummy files of 2.5 s: train 2 epochs (bfloat16, batch 16 x 2 s,
-   cross-validation on the test files every epoch, LSD at the end), resume
-   for a third, score the test set and predict a 12.3 s file from
-   checkpoint.atpu. It raises unless every train step launched 4 forward
+   cross-validation on the test files every epoch, LSD at the end,
+   ``profile=true``), resume for a third, score the test set and predict a
+   12.3 s file from checkpoint.atpu. It raises unless profile/ holds one
+   trace, of step 1 of epoch 0, naming the three attention kernels, every
+   train step launched 4 forward
    and 8 backward attention kernels and every valid or eval forward 4, all
    on the tensor cores, the history and LSD are finite, the resume ran
    epoch 3 alone, the samples are written and the prediction is 4x its
@@ -123,7 +128,23 @@ prints its time:
    NCCL kernels' device time; (c) the 35 s predict file split over
    [cuda:0, cuda:0], one replica each, against one device (float32 within
    1e-5 relative L2, bfloat16 printed), and the predict CLI with
-   ``+devices=[cuda:0,cuda:0]``.
+   ``+devices=[cuda:0,cuda:0]``;
+12. generator options at the canonical width, seed-0 init (``generator_
+   options``): (a) serving with ``dconv_mode=3`` at batch 16 x 10 s in
+   bf16: 8 forward launches on the tensor cores, 2 each at enc2 (C' 12),
+   enc3 (24) and the decoders of plan index 2 (24) and 3 (48), the
+   whole-forward gap to plain (bf16 2e-2, f32 1e-3), the realtime factor
+   and per-layer times, and with the opt-in switches 12 LSTM launches (4
+   in the decoder at H 96; H 192 takes cuDNN), 8 banded and 4 FTB; (b) its
+   train step: phase 7's B = 4 gaps, and at B = 16 x 2 s 8 + 16 launches a
+   step, the median of 5, peak memory and a profiled step; (c) serving
+   with ``freq_ends=2, act_func=gelu``: enc3 on the time axis, its 2
+   launches at T 1251, the gap to plain and the realtime factor; (d) a
+   LocalState with nfreqs 2 in f32 on the card against the CPU (1e-4
+   relative L2, no kernel launched) and one with ndecay 0 against its
+   plain version; (e) the predict CLI with ``experiment.upsample=true`` and
+   ``experiment.aero.spec_upsample=false`` on the 35 s file, whose output
+   has the 16 kHz resampled input's length.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and the result JSON.
@@ -133,6 +154,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import glob
 import hashlib
 import json
 import math
@@ -155,6 +177,14 @@ ENC3 = (BATCH * 4, 2501, 4, 24)
 # ... and at the train step's, B = 16 x 2 s (T = 8000 / 16 + 1)
 TRAIN_ENC2 = (BATCH * 8, 501, 4, 12)
 TRAIN_ENC3 = (BATCH * 4, 501, 4, 24)
+# with dconv_mode 3 the decoders run DConv on 2 * chout channels too: the
+# decoder of plan index 2 (384 channels, hidden 96) and of index 3 (768,
+# hidden 192, the head width 48)
+DEC2 = (BATCH * 8, 2501, 4, 24)
+DEC3 = (BATCH * 4, 2501, 4, 48)
+TRAIN_DEC3 = (BATCH * 4, 501, 4, 48)
+# with freq_ends 2 enc3 strides the time axis: F stays 8, T 2501 -> 1251
+TIME_ENC3 = (BATCH * 8, 1251, 4, 24)
 # backward: max|got - want| <= tol * max|want| per gradient
 BWD_TOL_F32, BWD_TOL_BF16 = 1e-4, 2e-2
 LSE_ATOL = 1e-3  # float32 log-sum-exp of scores of size O(10)
@@ -374,7 +404,7 @@ def check_backward(attention, cases):
                        zip(("dq", "dk", "dv", "dw"), errs))
             + f"; tol {tol:g} of max; lse {lse_err:.2e}; bit-identical "
             "across two calls")
-        if shape in (TRAIN_ENC2, TRAIN_ENC3):
+        if shape in (TRAIN_ENC2, TRAIN_ENC3, TRAIN_DEC3):
             train_abs = max([train_abs] + [e for e, _ in errs])
             train_rel = max([train_rel] + [r for _, r in errs])
     return train_abs, train_rel
@@ -618,6 +648,11 @@ def profile_forward(gen, fwd, x, smi, what):
                 hooks += watch(f"enc{i}.{type(m).__name__}", m)
     for j, dec in enumerate(gen.decoder):
         hooks += watch(f"dec{j}", dec)
+        if dec.dconv is not None:  # dconv_mode & 2
+            hooks += watch(f"dec{j}.dconv", dec.dconv)
+            for m in dec.dconv.modules():
+                if isinstance(m, (M.BLSTM, M.LocalState)):
+                    hooks += watch(f"dec{j}.{type(m).__name__}", m)
     t0 = time.perf_counter()
     fwd(x)
     wall = time.perf_counter() - t0
@@ -686,6 +721,22 @@ def checked_forward(fwd, x, counted, want):
     return y, launches
 
 
+def forward_gaps(fwd, fwd32, chunk, plain, what):
+    """Whole forward of one chunk, kernels against their plain versions
+    (``plain``, as ``forward_with`` takes them), in relative L2, bf16 and
+    f32; raises beyond GAP_BF16 or GAP_F32."""
+    gap_bf16 = rel_l2(fwd(chunk), forward_with(plain, fwd, chunk))
+    y32 = fwd32(chunk)
+    gap_f32 = rel_l2(y32, forward_with(plain, fwd32, chunk))
+    gap_dtype = rel_l2(fwd(chunk), y32)
+    log(f"one chunk, {what} path, kernels vs plain versions, relative L2: "
+        f"bf16 {gap_bf16:.3e} (< {GAP_BF16:g}), f32 {gap_f32:.3e} (< "
+        f"{GAP_F32:g}); bf16 vs f32 forward {gap_dtype:.3e}")
+    if not (gap_bf16 < GAP_BF16 and gap_f32 < GAP_F32):
+        raise AssertionError(f"{what} forward with kernels disagrees with "
+                             "plain")
+
+
 def serving(attention, lstm, ftb, smi):
     """Phase 6 and the serving numbers; returns the kernel launches of the
     default and of the opt-in batch-16 forward."""
@@ -726,31 +777,16 @@ def serving(attention, lstm, ftb, smi):
                             device="cuda")
         chunk = x[:1]
 
-        def gaps(what):
-            """Whole forward of one chunk, kernels against their plain
-            versions, in relative L2."""
-            gap_bf16 = rel_l2(fwd(chunk), forward_with(plain, fwd, chunk))
-            y32 = fwd32(chunk)
-            gap_f32 = rel_l2(y32, forward_with(plain, fwd32, chunk))
-            gap_dtype = rel_l2(fwd(chunk), y32)
-            log(f"one chunk, {what} path, kernels vs plain versions, "
-                f"relative L2: bf16 {gap_bf16:.3e} (< {GAP_BF16:g}), f32 "
-                f"{gap_f32:.3e} (< {GAP_F32:g}); bf16 vs f32 forward "
-                f"{gap_dtype:.3e}")
-            if not (gap_bf16 < GAP_BF16 and gap_f32 < GAP_F32):
-                raise AssertionError(f"{what} forward with kernels disagrees "
-                                     "with plain")
-
         y, launches = checked_forward(fwd, x, counted, {
             "attention": 4, "attention_mma": 4, "banded": 0, "lstm": 0,
             "lstm_mma": 0, "ftb": 0, "ftb_mma": 0})
-        gaps("default")
+        forward_gaps(fwd, fwd32, chunk, plain, "default")
         with switches(OPT_IN):
             y_opt, opt_launches = checked_forward(fwd, x, counted, {
                 "attention": 4, "attention_mma": 4, "banded": 4, "lstm": 8,
                 "lstm_mma": 8, "ftb": 4, "ftb_mma": 4})
-            gaps("opt-in (" + ", ".join(f"{k}={v}" for k, v in OPT_IN.items())
-                 + ")")
+            forward_gaps(fwd, fwd32, chunk, plain, "opt-in (" + ", ".join(
+                f"{k}={v}" for k, v in OPT_IN.items()) + ")")
         log(f"opt-in vs default forward B={BATCH}, relative L2: "
             f"{rel_l2(y_opt, y):.3e} (the band and the bf16 recurrence "
             "change the function)")
@@ -843,24 +879,27 @@ class pinned_floors(contextlib.ContextDecorator):
         return False
 
 
-def train_setup(precision, batch):
+CANONICAL = ["experiment=aero_4-16_512_64", "dset=4-16"]
+
+
+def train_setup(precision, batch, overrides=()):
     """Models, TrainStep and bench.py's batch for the canonical
-    experiment (``gan_setup``)."""
-    return gan_setup(["experiment=aero_4-16_512_64", "dset=4-16"],
-                     precision, batch)[1:]
+    experiment with ``overrides`` (``gan_setup``)."""
+    return gan_setup(CANONICAL + list(overrides), precision, batch)[1:]
 
 
-def train_gaps(attention):
+def train_gaps(attention, overrides=()):
     """One step's losses and generator gradient at batch 4 with the
     kernels against the plain attention under autograd: the losses, the
     whole gradient, and each LocalState leaf alone (the attention's
     gradient reaches the network behind DConv's 1e-3 LayerScale, so the
-    whole gradient would hardly see a wrong backward)."""
+    whole gradient would hardly see a wrong backward); the canonical
+    experiment with ``overrides``."""
     from aero_tpu_torch.models.modules import LocalState
 
     for precision, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
-        models, step, lr, hr = train_setup(precision, 4)
+        models, step, lr, hr = train_setup(precision, 4, overrides)
         gen = models["generator"]
         names = [n for n, _ in gen.named_parameters()]
         # key.bias shifts every score of a query alike: its gradient is
@@ -890,7 +929,8 @@ def train_gaps(attention):
             a, e = g_k[i].float(), g_p[i].float()
             leaf_gaps[name] = float((a - e).norm() / e.norm())
         worst = max(leaf_gaps, key=leaf_gaps.get)
-        log(f"train step B=4 {precision}, kernels vs plain attention: "
+        log(f"train step B=4 {precision} {' '.join(overrides)}, kernels "
+            "vs plain attention: "
             f"max relative loss gap {loss_gap:.3e} (< "
             f"{TRAIN_LOSS_GAP[dtype]:g}), generator gradient relative L2 "
             f"{grad_gap:.3e} (< {TRAIN_GRAD_GAP[dtype]:g}), each of "
@@ -973,6 +1013,10 @@ def recorder(attention, calls, sync=False, tag=None):
 
 
 SOLVER_FILES, SOLVER_FILE_S = 40, 2.5
+# the kernels that phase 9's profile=true trace of a bf16 step must name
+PROFILED_KERNELS = ("local_attention_fwd_mma_kernel",
+                    "local_attention_bwd_dq_mma_kernel",
+                    "local_attention_bwd_dkv_mma_kernel")
 # one fused-Adam update from the restored state against torch's plain
 # single-tensor Adam on the CPU, same state and gradient: of max |update|,
 # beyond one float32 ulp of each updated parameter
@@ -1118,8 +1162,15 @@ def solver(attention, smi):
         zero_attention_counts(attention)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        history = train_cli.main(train + ["epochs=2"])
+        history = train_cli.main(train + ["epochs=2", "profile=true"])
         t_train = time.perf_counter() - t0
+        traces = glob.glob(os.path.join(run_dir, "profile",
+                                        "*.pt.trace.json"))
+        text = ""
+        for path in traces:
+            with open(path) as f:
+                text += f.read()
+        traced = {k: k in text for k in PROFILED_KERNELS}
         first_epochs = [e[2] for e in epochs]
         n_first = len(steps)
         history = train_cli.main(train + ["epochs=3"])
@@ -1174,10 +1225,15 @@ def solver(attention, smi):
         f"state of {adam_n} parameters equal to the saved one, fused update "
         f"from it vs plain Adam {adam_gap:.2e} of max |update| (tolerance "
         f"{ADAM_UPDATE_TOL:g} of it plus one float32 ulp of the parameter)")
+    log(f"solver: profile=true traced step 1 of epoch 0 into {len(traces)} "
+        f"file(s) under profile/, naming {traced}")
     log(f"solver: test CLI {results}; predict CLI {n_in} -> "
         f"{out['out_samples']} samples, realtime factor "
         f"{out['realtime_factor']:.1f}x; attention launches {launches}")
 
+    if len(traces) != 1 or not all(traced.values()):
+        raise AssertionError(f"profile=true: {len(traces)} traces, kernels "
+                             f"named {traced}")
     want_step = {"forward": 4, "forward_mma": 4, "backward": 8,
                  "backward_mma": 8}
     bad = [c[1] for c in steps if c[1] != want_step]
@@ -1484,6 +1540,197 @@ def hifi_seanet(attention, lstm, ftb, smi):
     if out["out_samples"] != 4 * n_in:
         raise AssertionError("seanet predict output is not 4x the input")
     return hifi_launches
+
+
+DCONV3 = {"dconv_mode": 3}
+TIME_GELU = {"freq_ends": 2, "act_func": "gelu"}
+NFREQS_TOL = 1e-4  # float32 card vs CPU, relative L2 (TF32 off)
+
+
+def forward_shapes(attention, shapes):
+    """``wrapped`` that appends the folded (rows, T, C') of each forward
+    kernel launch to ``shapes``."""
+    def make(fn):
+        @functools.wraps(fn)
+        def call(qf, *args, **kwargs):
+            shapes.append(tuple(qf.shape))
+            return fn(qf, *args, **kwargs)
+        return call
+    return wrapped(attention, "_kernel_fwd", make)
+
+
+def folded(shape):  # [B*F, T, H, C'] -> the kernel's (rows, T, C')
+    b, t, h, c = shape
+    return (b * h, t, c)
+
+
+def serve_option(attention, lstm, ftb, smi, aero_kw, want_shapes,
+                 optin=None):
+    """One serving cell of phase 12: the canonical generator with
+    ``aero_kw`` from the seeded init in bf16 at batch 16 x 10 s. One
+    forward whose forward-kernel launches, all on the tensor cores, have
+    ``want_shapes`` [B*F, T, H, C'], the whole-forward gap to the plain
+    versions in bf16 and f32, with the opt-in switches one forward that
+    must launch ``optin``, the realtime factor and per-layer times.
+    Returns the launches of the default and of the opt-in forward."""
+    from aero_tpu_torch.eval.forward import EvalForward
+    from aero_tpu_torch.models.factory import (
+        CANONICAL_AERO_4_16, build_generator)
+
+    what = " ".join(f"{k}={v}" for k, v in aero_kw.items())
+    kwargs = dict(CANONICAL_AERO_4_16, **aero_kw)
+    gen = build_generator(kwargs, "bfloat16", "cuda", seed=0)
+    gen32 = build_generator(kwargs, "float32", "cuda", seed=0)
+    log(f"generator: canonical with {what}, "
+        f"{sum(p.numel() for p in gen.parameters())} params, bf16 compute")
+    fwd, fwd32 = (EvalForward(g, scale=HR_SR / LR_SR, lr_sr=LR_SR,
+                              device="cuda") for g in (gen, gen32))
+    x = (0.1 * np.random.default_rng(0).standard_normal(
+        (BATCH, 1, SECONDS * LR_SR))).astype(np.float32)
+    counted = (attention, lstm, ftb)
+    n = len(want_shapes)
+    shapes = []
+    with forward_shapes(attention, shapes):
+        _, launches = checked_forward(fwd, x, counted, {
+            "attention": n, "attention_mma": n, "banded": 0, "lstm": 0,
+            "lstm_mma": 0, "ftb": 0, "ftb_mma": 0})
+    want = sorted(folded(w) for w in want_shapes)
+    log(f"  {what}: forward kernel launches at (rows, T, C') {shapes}")
+    if sorted(shapes) != want:
+        raise AssertionError(f"{what}: forward kernel shapes {shapes}, want "
+                             f"{want}")
+    forward_gaps(fwd, fwd32, x[:1], plain_swaps(*counted), what)
+    del gen32, fwd32
+    opt = None
+    if optin is not None:
+        with switches(OPT_IN):
+            _, opt = checked_forward(fwd, x, counted, optin)
+    realtime_factor(fwd, x, smi, what)
+    profile_forward(gen, fwd, x, smi, what)
+    del gen, fwd
+    torch.cuda.empty_cache()
+    return launches, opt
+
+
+def local_state_options(attention, smi):
+    """Phase 12 (d): a LocalState with nfreqs 2 (the decoder of plan index
+    2's width: 96 channels, 4 heads) on the card in f32 against the CPU,
+    which must launch no kernel and take ``periodic_attention`` once; one
+    with ndecay 0 in f32 and bf16, which must launch the forward kernel on
+    its dtype's route and hold its plain version (GAP_F32, GAP_BF16)."""
+    import copy
+
+    from aero_tpu_torch.models.modules import LocalState
+
+    n, c, t = 8, 96, 2501
+    x = torch.from_numpy((0.5 * np.random.default_rng(9).standard_normal(
+        (n, c, t))).astype(np.float32))
+    torch.manual_seed(0)
+    cpu = LocalState(c, nfreqs=2).eval()
+    card = copy.deepcopy(cpu).cuda()
+    with torch.no_grad():
+        want = cpu(x).numpy()
+        zero_attention_counts(attention)
+        calls = attention.periodic_attention.calls
+        got = card(x.cuda()).cpu().numpy()
+    launched = attention_counts(attention)["forward"]
+    calls = attention.periodic_attention.calls - calls
+    nfreqs_gap = rel_l2(got, want)
+    log(f"LocalState nfreqs=2 [N, C, T]=({n}, {c}, {t}) f32, card vs CPU: "
+        f"relative L2 {nfreqs_gap:.3e} (< {NFREQS_TOL:g}); kernel launches "
+        f"{launched}, periodic_attention calls {calls} [{smi}]")
+    if not (nfreqs_gap < NFREQS_TOL and launched == 0 and calls == 1):
+        raise AssertionError("LocalState nfreqs on the card")
+    torch.manual_seed(1)
+    module = LocalState(c, ndecay=0).cuda().eval()
+    for dtype, tol in ((torch.float32, GAP_F32), (torch.bfloat16, GAP_BF16)):
+        xd = x.cuda().to(dtype)
+        with torch.no_grad():
+            zero_attention_counts(attention)
+            got = module(xd)
+            launched = attention_counts(attention)
+            want = forward_with({(attention, "local_attention"):
+                                 plain_attention(attention)}, module, xd)
+        gap = rel_l2(got.float().cpu().numpy(), want.float().cpu().numpy())
+        mma = int(dtype == torch.bfloat16)
+        log(f"LocalState ndecay=0 {str(dtype)[6:]}: kernel vs plain relative "
+            f"L2 {gap:.3e} (< {tol:g}); launches {launched}")
+        if not (gap < tol and launched["forward"] == 1
+                and launched["forward_mma"] == mma):
+            raise AssertionError(f"LocalState ndecay=0 {dtype}")
+
+
+def predict_upsample(attention, smi):
+    """Phase 12 (e): the predict CLI with ``experiment.upsample=true`` and
+    ``experiment.aero.spec_upsample=false`` on the 35 s file from a
+    reference .th of the seeded canonical generator: the input resampled
+    to 16 kHz, the forward at scale 1, so the output has the resampled
+    input's length; 2 runs (warm-up, timed) of 3 batched chunks and the
+    tail, 4 forward launches each, all on the tensor cores."""
+    from aero_tpu_torch import predict
+    from aero_tpu_torch.data.resample import resample_np
+    from aero_tpu_torch.models.factory import (
+        CANONICAL_AERO_4_16, build_generator)
+    from aero_tpu_torch.train.from_jax import save_reference_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "checkpoint.th")
+        kwargs = dict(CANONICAL_AERO_4_16, spec_upsample=False)
+        save_reference_checkpoint(ckpt, build_generator(
+            kwargs, "bfloat16", "cuda", seed=0), kwargs)
+        wav = os.path.join(tmp, "chirp35.wav")
+        n_in = write_test_wav(wav, 35)
+        zero_attention_counts(attention)
+        out = predict.main(CANONICAL + [
+            f"+filename={wav}", f"+output={tmp}/out",
+            f"checkpoint_file={ckpt}", "precision=bfloat16", "device=cuda",
+            "experiment.upsample=true", "experiment.aero.spec_upsample=false"])
+        launches = attention_counts(attention)
+    n_hr = resample_np(np.zeros(n_in, np.float32), LR_SR, HR_SR).shape[-1]
+    log(f"predict CLI, upsample=true: 35 s file, {n_in} samples resampled to "
+        f"{n_hr}, out {out['out_samples']} samples, realtime factor "
+        f"{out['realtime_factor']:.1f}x; attention launches {launches} "
+        f"[{smi}]")
+    if not (out["in_samples"] == out["out_samples"] == n_hr
+            and launches["forward"] == launches["forward_mma"] == 16):
+        raise AssertionError("predict with upsample=true")
+    return out
+
+
+def generator_options(attention, lstm, ftb, smi):
+    """Phase 12: the generator options at the canonical width. (a) serving
+    with dconv_mode 3: 8 forward launches, 2 each at enc2 (C' 12), enc3
+    (24), the decoders of plan index 2 (24) and 3 (48); with the opt-in
+    switches 12 LSTM launches (8 encoder, 4 decoder at H 96; none at
+    H 192, which takes cuDNN), 8 banded and 4 FTB. (b) training with
+    dconv_mode 3: phase 7's B = 4 gaps, then B = 16 x 2 s in bf16 with 8
+    forward launches and 8 backward calls (16 kernels) a step. (c) serving
+    with freq_ends 2 and GELU: enc3 and its decoder on the time axis, enc3's
+    attention at T 1251. (d) LocalState with nfreqs and with ndecay 0.
+    (e) predict with upsample=true. Returns the launch counts for the
+    kernels' JSON."""
+    out = {}
+    out["serve_dconv3"], out["optin_dconv3"] = serve_option(
+        attention, lstm, ftb, smi, DCONV3, [ENC2, ENC2, ENC3, ENC3, DEC2,
+                                            DEC2, DEC3, DEC3],
+        optin={"attention": 8, "attention_mma": 8, "banded": 8, "lstm": 12,
+               "lstm_mma": 12, "ftb": 4, "ftb_mma": 4})
+    train_gaps(attention, ["experiment.aero.dconv_mode=3"])
+    models, step, lr, hr = train_setup("bfloat16", BATCH,
+                                       ["experiment.aero.dconv_mode=3"])
+    out["train_dconv3"], _ = gan_step(
+        attention, models, step, lr, hr, smi, "train dconv_mode=3", {
+            "forward": 8, "forward_mma": 8, "backward": 16,
+            "backward_mma": 16})
+    del models, step
+    torch.cuda.empty_cache()
+    out["serve_time_gelu"], _ = serve_option(
+        attention, lstm, ftb, smi, TIME_GELU, [ENC2, ENC2, TIME_ENC3,
+                                               TIME_ENC3])
+    local_state_options(attention, smi)
+    predict_upsample(attention, smi)
+    return out
+
 
 DDP_BATCH = 4  # the float32 step: 2 rows on each of 2 ranks
 DDP_LOSS_TOL, DDP_GRAD_TOL = 1e-5, 1e-4  # relative; L2 for a gradient
@@ -1825,7 +2072,8 @@ def attention_numbers(attention, smi):
     plain version at the train shapes. Returns {shape name: numbers}."""
     out = {}
     for name, shape in (("train_enc2", TRAIN_ENC2), ("train_enc3", TRAIN_ENC3),
-                        ("serve_enc2", ENC2), ("serve_enc3", ENC3)):
+                        ("serve_enc2", ENC2), ("serve_enc3", ENC3),
+                        ("train_dec3", TRAIN_DEC3), ("serve_dec3", DEC3)):
         train = name.startswith("train")
         q, k, v, w = attn_inputs(shape, torch.bfloat16, seed=200)
         b, t, h, c = shape
@@ -1905,12 +2153,14 @@ def ab_times(calls):
 
 
 def optin_numbers(attention, lstm, ftb, smi):
-    """Per call at the opt-in serving path's shapes, in bf16: the kernel,
+    """Per call at the opt-in serving path's shapes (the banded forward
+    also at the width-48 decoder's of phase 12 (a)), in bf16: the kernel,
     its plain version, the library yardstick and the bound. Returns
     {kernel: {shape name: row}}, a row holding ms, plain_ms, library_ms,
     bound_ms and bound_by."""
     out = {"banded": {}, "lstm": {}, "ftb": {}}
-    for name, shape in (("serve_enc2", ENC2), ("serve_enc3", ENC3)):
+    for name, shape in (("serve_enc2", ENC2), ("serve_enc3", ENC3),
+                        ("serve_dec3", DEC3)):
         q, k, v, w = attn_inputs(shape, torch.bfloat16, seed=210)
         b, t, h, c = shape
         fold = [attention._fold(x, b, t, h, c) for x in (q, k, v)]
@@ -1984,13 +2234,14 @@ def optin_numbers(attention, lstm, ftb, smi):
 
 def optin_entry(name, src, replaces, launches, err, rows, per_forward):
     """A kernels-JSON entry of the opt-in serving path: the times summed
-    over one forward's calls (``per_forward`` {shape name: calls})."""
+    over one canonical forward's calls (``per_forward`` {shape name:
+    calls}; ``rows`` may hold more shapes, phase 12's)."""
     def total(key):
-        vals = [r[key] for r in rows.values()]
+        vals = [rows[n][key] for n in per_forward]
         if None in vals:
             return None
-        return sum(per_forward[n] * r[key] for n, r in rows.items())
-    top = max(rows.values(), key=lambda r: r["bound_ms"])
+        return sum(per_forward[n] * rows[n][key] for n in per_forward)
+    top = max((rows[n] for n in per_forward), key=lambda r: r["bound_ms"])
     entry = {"name": name, "route": "cuda",
              "source": f"aero_tpu_torch/csrc/{src}", "replaces": replaces,
              "launches": launches, "max_abs_err": err, "ms": total("ms"),
@@ -2029,25 +2280,34 @@ def main():
 
     f32, bf16 = torch.float32, torch.bfloat16
     with phase("3 attention forward"):
-        path_shapes = (ENC2, ENC3, TRAIN_ENC2, TRAIN_ENC3)
+        path_shapes = (ENC2, ENC3, TRAIN_ENC2, TRAIN_ENC3, DEC2, DEC3,
+                       TRAIN_DEC3, TIME_ENC3)
         fwd_err = check_kernel(attention, [
             ((2, t, 2, c), dt, 0) for dt in (f32, bf16) for c in (12, 24)
             for t in (500, 2501, 3000, 4097, 6891)] + [
+            ((2, t, 2, 48), dt, 0) for dt in (f32, bf16)
+            for t in (500, 2501, 4097)] + [
             ((2, 777, 2, c), bf16, 0) for c in attention.KERNEL_WIDTHS] + [
             (s, bf16, 0) for s in path_shapes], path_shapes)
         band_err = check_kernel(attention, [
             ((2, t, 2, c), dt, w) for dt in (f32, bf16) for c in (12, 24)
             for t in (501, 2501, 4097) for w in (16, BAND, t - 1)] + [
+            ((2, t, 2, 48), dt, w) for dt in (f32, bf16)
+            for t in (500, 2501, 4097) for w in (16, BAND)] + [
             ((2, 777, 2, c), bf16, w) for c in attention.KERNEL_WIDTHS
             for w in (16, 776)] + [
-            (ENC2, bf16, BAND), (ENC3, bf16, BAND)], (ENC2, ENC3))
+            (ENC2, bf16, BAND), (ENC3, bf16, BAND), (DEC3, bf16, BAND)],
+            (ENC2, ENC3, DEC3))
     with phase("4 attention backward"):
         bwd_abs, bwd_rel = check_backward(attention, [
             ((2, t, 2, c), dt, 0) for dt in (f32, bf16) for c in (12, 24)
             for t in (501, 762, 1379, 2048, 2501, 4097)] + [
-            (TRAIN_ENC2, bf16, 0), (TRAIN_ENC3, bf16, 0)])
+            ((2, t, 2, 48), dt, 0) for dt in (f32, bf16)
+            for t in (501, 2501)] + [
+            (TRAIN_ENC2, bf16, 0), (TRAIN_ENC3, bf16, 0),
+            (TRAIN_DEC3, bf16, 0)])
         check_backward(attention, [
-            ((2, t, 2, c), dt, w) for dt in (f32, bf16) for c in (12, 24)
+            ((2, t, 2, c), dt, w) for dt in (f32, bf16) for c in (12, 24, 48)
             for t in (501, 2501) for w in (16, BAND)] + [
             (TRAIN_ENC2, bf16, BAND), (TRAIN_ENC3, bf16, BAND)])
     with phase("5 lstm and ftb kernels"):
@@ -2067,6 +2327,8 @@ def main():
         hifi_launches = hifi_seanet(attention, lstm, ftb, smi)
     with phase("11 ddp"):
         ddp_launches = data_parallel(smi, train_ms)
+    with phase("12 generator options"):
+        options = generator_options(attention, lstm, ftb, smi)
 
     def per_step(key):  # 2 calls at each train shape per step
         return 2 * (nums["train_enc2"][key] + nums["train_enc3"][key])
@@ -2103,6 +2365,16 @@ def main():
     for i, key in enumerate(("forward", "backward")):
         kernels[i]["launches_ddp_f32_rank_steps"] = [
             c[key] for c in ddp_launches["gloo"]]
+    # phase 12: dconv_mode 3 serving (8) and its train step (8 + 16), the
+    # time-axis serving cell (4); the per-call times at width 48 are in
+    # per_call under serve_dec3 and train_dec3
+    kernels[0]["launches_options_serving_dconv3"] = \
+        options["serve_dconv3"]["attention_mma"]
+    kernels[0]["launches_options_serving_time_gelu"] = \
+        options["serve_time_gelu"]["attention_mma"]
+    for i, key in enumerate(("forward_mma", "backward_mma")):
+        kernels[i]["launches_options_train_dconv3_step"] = \
+            options["train_dconv3"][key]
     kernels += [
         optin_entry("local_attention_banded_fwd", "local_attention_mma.cu",
                     "aero_tpu/ops/attention.py:180", optin_launches["banded"],
@@ -2115,6 +2387,9 @@ def main():
                     optin_launches["ftb_mma"], ftb_err, opt["ftb"],
                     {f"enc{i}": 1 for i in range(4)})]
     kernels[3]["bound_note"] = LSTM_BOUND_NOTE
+    for i, key in ((2, "banded"), (3, "lstm_mma"), (4, "ftb_mma")):
+        kernels[i]["launches_options_optin_dconv3"] = \
+            options["optin_dconv3"][key]
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

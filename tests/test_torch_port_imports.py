@@ -82,10 +82,12 @@ def test_chip_smoke_fails_without_gpu():
 
 @pytest.mark.parametrize("module", ["aero_tpu_torch.parallel.mesh",
                                     "aero_tpu_torch.entry",
-                                    "aero_tpu_torch.train.__main__"])
+                                    "aero_tpu_torch.train.__main__",
+                                    "aero_tpu_torch.utils.profiling"])
 def test_data_parallel_modules_import_no_jax(module):
-    """The data-parallel modules, each alone in a fresh interpreter (a
-    rank imports them first), bring in neither JAX nor the JAX package."""
+    """The data-parallel modules and the Solver's profiling, each alone in
+    a fresh interpreter (a rank imports them first), bring in neither JAX
+    nor the JAX package."""
     res = _run(["-c", f"import sys, {module}\n"
                 "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
                 f"{FORBIDDEN!r})\nassert not bad, bad"], ROOT)

@@ -27,7 +27,7 @@ def test_attention_route_by_dtype(c):
 
 
 @pytest.mark.parametrize("dtype,c,error", [
-    (torch.bfloat16, 6, ValueError), (torch.float32, 48, ValueError),
+    (torch.bfloat16, 6, ValueError), (torch.float32, 64, ValueError),
     (torch.float16, 12, TypeError), (torch.float64, 24, TypeError)])
 def test_attention_route_raises_on_what_no_kernel_takes(dtype, c, error):
     with pytest.raises(error):

@@ -60,7 +60,7 @@ def test_attention_backward_route_by_dtype(c):
 
 
 @pytest.mark.parametrize("dtype,c,error", [
-    (BF16, 6, ValueError), (torch.float32, 48, ValueError),
+    (BF16, 6, ValueError), (torch.float32, 64, ValueError),
     (torch.float16, 12, TypeError)])
 def test_attention_backward_route_raises(dtype, c, error):
     with pytest.raises(error):

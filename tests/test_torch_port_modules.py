@@ -107,8 +107,19 @@ def test_local_state(t):
 
 
 def test_local_state_nfreqs_not_ported():
-    with pytest.raises(NotImplementedError):
-        pm.LocalState(16, nfreqs=2)
+    """No kernel port exists for ``nfreqs`` (the JAX package runs none):
+    the module builds and each call takes the counted plain route,
+    ``periodic_attention``, not ``local_attention``."""
+    from aero_tpu_torch.ops import attention
+
+    port = pm.LocalState(16, nfreqs=2).eval()
+    calls = attention.periodic_attention.calls
+    launches = attention.local_attention.launches
+    with torch.no_grad():
+        out = port(torch.randn(2, 16, 40))
+    assert out.shape == (2, 16, 40)
+    assert attention.periodic_attention.calls == calls + 1
+    assert attention.local_attention.launches == launches
 
 
 def test_dconv_with_lstm_and_attention():
