@@ -19,6 +19,7 @@ from torch import nn
 
 from aero_tpu_torch.ops import attention, ftb, lstm
 from aero_tpu_torch.parallel import mesh
+from aero_tpu_torch.utils import flops
 
 logger = logging.getLogger(__name__)
 
@@ -273,7 +274,7 @@ class BLSTM(nn.Module):
                 and lstm.takes_kernel(self.lstm.hidden_size)):
             h = self._recurrence(h)
         else:
-            h = self.lstm(h.float())[0].to(x.dtype)
+            h = self._lstm(h.float()).to(x.dtype)
         h = self.linear(h)
         if framed:
             frames = h.reshape(n, n_frames, width, c)
@@ -283,6 +284,20 @@ class BLSTM(nn.Module):
             out.append(frames[:, n_frames - 1, limit:])
             h = torch.cat(out, dim=1)[:, :t]
         return x + h.transpose(1, 2)
+
+    def _lstm(self, h):
+        """``nn.LSTM`` on [N, T, C] float32 (one cuDNN or oneDNN operator,
+        or the CPU's cell loop), counted in a FLOP count as the JAX
+        package's scan (``flops.lstm_flops``)."""
+        n, t, c = h.shape
+        hidden, layers = self.lstm.hidden_size, self.lstm.num_layers
+        fwd = flops.lstm_flops(n, t, [c] + [2 * hidden] * (layers - 1),
+                               hidden)
+        # less the first layer's input gradient where h takes none
+        bwd = 2 * fwd - (0 if h.requires_grad else 2 * 2 * n * t * 4
+                         * hidden * c)
+        return flops.counted("lstm", fwd, bwd,
+                             lambda h: self.lstm(h)[0], h)
 
     def _recurrence(self, h):
         """[N, T, C] -> [N, T, 2H] in h's dtype through the recurrence

@@ -114,3 +114,9 @@ def raise_on(err: int, lib, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
                            f"{lib.aero_cuda_error_string(err).decode()}")
+
+
+def on_cpu(*tensors) -> bool:
+    """Whether every tensor given (None aside) lies on the CPU: a wrapper
+    then takes its kernel's plain version."""
+    return all(x is None or x.device.type == "cpu" for x in tensors)

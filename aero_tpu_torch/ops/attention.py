@@ -39,6 +39,7 @@ import os
 import torch
 
 from aero_tpu_torch.ops import _build
+from aero_tpu_torch.utils import flops
 
 # Head widths the CUDA kernels are instantiated for (csrc/local_attention.cuh).
 KERNEL_WIDTHS = (2, 4, 8, 12, 16, 24, 32, 48)
@@ -285,9 +286,16 @@ def local_attention(q, k, v, w, band: int = 0):
     tensors launch the hand-written kernels at every T and band, the
     forward by ``forward_route``: inputs that require a gradient go through
     ``_LocalAttention``, whose backward kernels ``backward_route`` names.
-    Anything the kernels do not take raises.
+    Anything the kernels do not take raises. Either route counts as
+    ``flops.attention_flops`` (its backward twice that) in a FLOP count.
     """
-    if all(x.device.type == "cpu" for x in (q, k, v, w)):
+    fwd = flops.attention_flops(*q.shape, band=band)
+    return flops.counted("attention", fwd, 2 * fwd, _local_attention,
+                         q, k, v, w, band)
+
+
+def _local_attention(q, k, v, w, band):
+    if _build.on_cpu(q, k, v, w):
         if band > 0:
             return banded_reference_attention(q, k, v, w, band)
         return reference_attention(q, k, v, w)

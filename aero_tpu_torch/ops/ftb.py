@@ -27,6 +27,7 @@ import os
 import torch
 
 from aero_tpu_torch.ops import _build
+from aero_tpu_torch.utils import flops
 
 TILES = (16, 32, 48, 64)  # output channels per block (csrc/ftb.cu)
 MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
@@ -190,9 +191,18 @@ def ftb_tail(x, h, ka, kb, w_freq, b2):
     """relu(W_freq (h * x) Ka + x Kb + b2), [B, C', F, T] in x's dtype
     (layouts in the module docstring). CPU tensors take the plain version;
     CUDA tensors launch the kernel ``route`` names after the frequency-mix
-    matmul, and anything no kernel takes raises."""
+    matmul, and anything no kernel takes raises. In a FLOP count the
+    frequency mix is a matmul and the rest counts as both channel mixes,
+    the 1x1 convolution of 2C channels to C' it fuses."""
     y = freq_mix(x, w_freq)
-    if all(a.device.type == "cpu" for a in (x, h, ka, kb, b2)):
+    b, c, f, t = x.shape
+    fwd = 2 * b * f * t * 2 * c * ka.shape[1]
+    return flops.counted("ftb", fwd, 2 * fwd, _ftb_tail, x, y, h, ka, kb,
+                         b2)
+
+
+def _ftb_tail(x, y, h, ka, kb, b2):
+    if _build.on_cpu(x, y, h, ka, kb, b2):
         return reference_fused_tail(x, y, h, ka, kb, b2)
     return _launch(x, y, h, ka, kb, b2)
 

@@ -32,6 +32,7 @@ import os
 import torch
 
 from aero_tpu_torch.ops import _build
+from aero_tpu_torch.utils import flops
 
 MAX_HIDDEN = 128  # the kernel's gate, as the JAX package's: H % 8 == 0 too
 
@@ -153,10 +154,24 @@ def pack_w_hh_mma(w_hh):
 def lstm_recurrence(xp, w_hh, bias=None):
     """The recurrence (layouts in the module docstring). CPU tensors take
     the plain version; CUDA tensors launch the kernel ``route`` names, and
-    anything no kernel takes raises."""
-    if xp.device.type == "cpu" and w_hh.device.type == "cpu" and (
-            bias is None or bias.device.type == "cpu"):
+    anything no kernel takes raises. Either counts as the hidden product
+    of every step and direction in a FLOP count (the input projection is
+    the caller's)."""
+    t, rows, n = xp.shape
+    hd = rows // 8
+    fwd = flops.lstm_flops(n, t, [0], hd)
+    return flops.counted("lstm", fwd, 2 * fwd, _lstm_recurrence, xp, w_hh,
+                         bias)
+
+
+def _lstm_recurrence(xp, w_hh, bias):
+    if _build.on_cpu(xp, w_hh, bias):
         return reference_lstm_recurrence(xp, w_hh, bias)
+    return _launch(xp, w_hh, bias)
+
+
+def _launch(xp, w_hh, bias):
+    """The kernel ``route`` names on (xp, w_hh, bias): [T, 2H, N]."""
     t, hd, n, kernel = _check(xp, w_hh, bias)
     lib = _build.library()
     xp = xp.contiguous()

@@ -51,7 +51,9 @@ prints its time:
    LSTM kernel 8 times, the banded attention 4 times and the FTB kernel 4
    times, all on the tensor cores, and the whole-forward gap against
    the three plain versions. The
-   realtime factor and per-layer times of both paths, side by side;
+   realtime factor and per-layer times of both paths, side by side, and
+   each layer's FLOPs (``utils.flops.count_flops`` of its calls) and MFU
+   against the card's bf16 dense peak (printed, not gated);
 7. training: the canonical generator and MelGAN discriminator from the
    seeded init. At batch 4, one step's losses, generator gradient and each
    LocalState gradient leaf with the kernels against the same step with
@@ -144,7 +146,18 @@ prints its time:
    relative L2, no kernel launched) and one with ndecay 0 against its
    plain version; (e) the predict CLI with ``experiment.upsample=true`` and
    ``experiment.aero.spec_upsample=false`` on the 35 s file, whose output
-   has the 16 kHz resampled input's length.
+   has the 16 kHz resampled input's length;
+13. the bench twin: ``python -m aero_tpu_torch.bench`` as a subprocess in
+   serving and in train mode (AERO_BENCH_TRAIN=1) at its defaults (the
+   canonical config, bf16, B 16), each one stdout line printed and held to
+   the root ``bench.py``'s keys, finite positive numbers, 0 < mfu <= 1.05
+   and a peak of 989.4 TFLOP/s on an H100 SXM, its counted call launching
+   4 (serving) and 4 + 8 (train) attention kernels; beside phase 6's and
+   7's times. Then ``count_flops`` of the serving forward and of the train
+   step with the kernels, under the plain swaps and with AERO_LSTM_KERNEL=1
+   AERO_FTB_KERNEL=1 (and the serving forward with both), which must be
+   one number each, within 1% of the JAX walker's count of the same work
+   (JAX_SERVE_FLOPS, PORT_TRAIN_FLOPS).
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and the result JSON.
@@ -162,6 +175,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -616,12 +630,55 @@ def device_profile(fn, what, smi):
     return idle
 
 
+def watched_layers(gen):
+    """(name, module) of the per-layer tables: each encoder and decoder,
+    their FTB and DConv blocks, and the BLSTMs and LocalStates in them
+    (several modules may share a name: their calls add up)."""
+    from aero_tpu_torch.models import modules as M
+
+    for i, enc in enumerate(gen.encoder):
+        yield f"enc{i}", enc
+        for sub in ("freq_attn_block", "dconv"):
+            if getattr(enc, sub) is not None:
+                yield f"enc{i}.{sub}", getattr(enc, sub)
+        for m in enc.modules():
+            if isinstance(m, (M.BLSTM, M.LocalState)):
+                yield f"enc{i}.{type(m).__name__}", m
+    for j, dec in enumerate(gen.decoder):
+        yield f"dec{j}", dec
+        if dec.dconv is not None:  # dconv_mode & 2
+            yield f"dec{j}.dconv", dec.dconv
+            for m in dec.dconv.modules():
+                if isinstance(m, (M.BLSTM, M.LocalState)):
+                    yield f"dec{j}.{type(m).__name__}", m
+
+
+def layer_flops(gen, fwd, x):
+    """{layer: FLOPs} of one ``fwd(x)``: each watched module's calls,
+    their inputs recorded in one forward, counted one by one
+    (``utils.flops.count_flops``)."""
+    from aero_tpu_torch.utils.flops import count_flops
+
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a, name=name: calls.append((name, m, a)))
+        for name, m in watched_layers(gen)]
+    try:
+        fwd(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    flops = {}
+    with torch.inference_mode():
+        for name, m, a in calls:
+            flops[name] = flops.get(name, 0) + count_flops(m, *a).total
+    return flops
+
+
 def profile_forward(gen, fwd, x, smi, what):
     """Per-layer device time (CUDA events around modules) and the device's
     busy share of one forward (torch.profiler); returns ({layer: ms},
     idle share)."""
-    from aero_tpu_torch.models import modules as M
-
     spans = {}
 
     def watch(name, module):
@@ -638,21 +695,8 @@ def profile_forward(gen, fwd, x, smi, what):
                 module.register_forward_hook(post)]
 
     hooks = []
-    for i, enc in enumerate(gen.encoder):
-        hooks += watch(f"enc{i}", enc)
-        for sub in ("freq_attn_block", "dconv"):
-            if getattr(enc, sub) is not None:
-                hooks += watch(f"enc{i}.{sub}", getattr(enc, sub))
-        for m in enc.modules():
-            if isinstance(m, (M.BLSTM, M.LocalState)):
-                hooks += watch(f"enc{i}.{type(m).__name__}", m)
-    for j, dec in enumerate(gen.decoder):
-        hooks += watch(f"dec{j}", dec)
-        if dec.dconv is not None:  # dconv_mode & 2
-            hooks += watch(f"dec{j}.dconv", dec.dconv)
-            for m in dec.dconv.modules():
-                if isinstance(m, (M.BLSTM, M.LocalState)):
-                    hooks += watch(f"dec{j}.{type(m).__name__}", m)
+    for name, module in watched_layers(gen):
+        hooks += watch(name, module)
     t0 = time.perf_counter()
     fwd(x)
     wall = time.perf_counter() - t0
@@ -803,7 +847,7 @@ def serving(attention, lstm, ftb, smi):
         if out["out_samples"] != 4 * n_in:
             raise AssertionError("predict output is not 4x the input")
 
-    realtime_factor(fwd, x, smi, "default")
+    serve_s = realtime_factor(fwd, x, smi, "default")
     with switches(OPT_IN):
         realtime_factor(fwd, x, smi, "opt-in")
     layers, idle = profile_forward(gen, fwd, x, smi, "default")
@@ -813,7 +857,25 @@ def serving(attention, lstm, ftb, smi):
         f"{idle_opt:.3f}) [{smi}]:")
     for name in layers:
         log(f"  {name:28s} {layers[name]:9.3f} | {layers_opt[name]:9.3f}")
-    return launches, opt_launches
+    mfu_table(gen, fwd, x, layers, smi)
+    return launches, opt_launches, serve_s
+
+
+def mfu_table(gen, fwd, x, layers, smi):
+    """Each layer's FLOPs of the default serving forward beside its device
+    time, and its share of the card's bf16 dense peak (``tools/
+    mfu_table.py``'s table on the TPU); printed, not gated."""
+    from aero_tpu_torch.utils.flops import peak_flops_per_sec
+
+    peak = peak_flops_per_sec("cuda", "bfloat16")
+    flops = layer_flops(gen, fwd, x)
+    log(f"per-layer FLOPs and MFU, default forward B={BATCH} bf16 (peak "
+        f"{peak / 1e12 if peak else float('nan'):.1f} TFLOP/s) [{smi}]:")
+    for name, ms in layers.items():
+        share = flops[name] / (ms / 1e3) / peak if peak and ms > 0 else None
+        log(f"  {name:28s} {ms:9.3f} ms {flops[name] / 1e12:9.4f} TFLOP "
+            + (f"{share * 100:6.2f} % MFU" if share is not None else
+               "MFU n/a"))
 
 
 STFT_FLOOR = 1e-7  # the STFT loss's floor on a bin's power |z|^2
@@ -1732,6 +1794,195 @@ def generator_options(attention, lstm, ftb, smi):
     return out
 
 
+# FLOPs of the canonical configuration by the JAX package's walker
+# (aero_tpu/utils/flops.py; ``python -m tests.test_torch_port_flops
+# batch=16 precision=bfloat16 port=0``, traced on a CPU): gen.apply at
+# B = 16 x 10 s, and make_train_step at B = 16 x 2 s with the MelGAN MSD in
+# the package's default lowering, which runs the MelGAN's small grouped
+# convolutions as dense block-diagonal ones and counts their zero blocks,
+# and with them counted as grouped
+JAX_SERVE_FLOPS = 10_692_785_975_296
+JAX_TRAIN_FLOPS = 9_837_288_220_672
+JAX_TRAIN_GROUPED_FLOPS = 6_408_965_969_920
+# ... and the step the port runs, from the same script: the grouped count
+# less JAX's fourth MelGAN forward (the real audio again in its
+# discriminator loss; the port's step runs it once for both losses), its
+# average-pool convolutions and its decay einsums, plus the port's input
+# gradient of the first decoder's rewrite over the zero half of cat(0, skip)
+PORT_TRAIN_FLOPS = 6_696_702_979_072
+FLOP_RTOL = 0.01
+BENCH_KEYS = {
+    "realtime_factor": ["metric", "value", "unit", "vs_baseline", "mode",
+                        "model_tflops", "mfu", "peak_tflops", "peak_dtype"],
+    "train_throughput": ["metric", "value", "unit", "vs_baseline", "mode",
+                         "step_ms", "batch", "model_tflops", "mfu",
+                         "devices", "peak_tflops", "peak_dtype"]}
+H100_SXM = "H100 80GB HBM3"  # torch.cuda.get_device_name of the SXM5 card
+BENCH_TIMEOUT_S = 600
+
+
+def run_bench(train: bool, smi):
+    """``python -m aero_tpu_torch.bench`` at its defaults (canonical, bf16,
+    B 16), serving or ``AERO_BENCH_TRAIN=1``, in a subprocess with none of
+    the opt-in switches: its one stdout line, checked, and the kernel
+    launches of its counted call (from its log)."""
+    env = {k: v for k, v in os.environ.items() if k not in OPT_IN}
+    env["AERO_BENCH_TRAIN"] = "1" if train else "0"
+    proc = subprocess.run(
+        [sys.executable, "-m", "aero_tpu_torch.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    what = "train" if train else "serving"
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"bench twin ({what}) exited "
+                             f"{proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    log(f"bench twin, {what} [{smi}]:")
+    log(lines[-1] if lines else "(no output)")
+    if len(lines) != 1:
+        raise AssertionError(f"bench twin ({what}) printed {len(lines)} "
+                             "lines, not 1")
+    result = json.loads(lines[0])
+    keys = BENCH_KEYS["train_throughput" if train else "realtime_factor"]
+    if list(result) != keys:
+        raise AssertionError(f"bench twin ({what}) keys {list(result)}, "
+                             f"want {keys}")
+    numbers = {k: v for k, v in result.items()
+               if k not in ("metric", "unit", "mode", "peak_dtype")}
+    if not all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+               for v in numbers.values()):
+        raise AssertionError(f"bench twin ({what}): a number is not finite "
+                             f"and positive: {numbers}")
+    if not 0 < result["mfu"] <= 1.05:
+        raise AssertionError(f"bench twin ({what}): mfu {result['mfu']}")
+    if H100_SXM in torch.cuda.get_device_name(0) and \
+            result["peak_tflops"] != 989.4:
+        raise AssertionError(f"bench twin ({what}): peak_tflops "
+                             f"{result['peak_tflops']} on an H100 SXM")
+    found = re.findall(r"launches of the counted call: (\{.*\})",
+                       proc.stderr)
+    if len(found) != 1:
+        raise AssertionError(f"bench twin ({what}): no launch log")
+    return result, json.loads(found[0])
+
+
+def count_checked(what, runs, want, want_launches):
+    """``runs`` {route: (FLOPs, launches)}: one count on every route,
+    within FLOP_RTOL of ``want``, and the kernel launches of each route
+    ``want_launches[route]``; raises otherwise."""
+    for route, (n, launches) in runs.items():
+        log(f"  {what}, {route}: {n} FLOPs, kernel launches {launches}")
+    counts = {n for n, _ in runs.values()}
+    if len(counts) != 1:
+        raise AssertionError(f"{what}: the count depends on the route: "
+                             f"{ {r: n for r, (n, _) in runs.items()} }")
+    n = counts.pop()
+    if abs(n - want) > FLOP_RTOL * want:
+        raise AssertionError(f"{what}: {n} FLOPs, the JAX walker's count "
+                             f"of the same work is {want}")
+    bad = {r: l for r, (_, l) in runs.items() if l != want_launches[r]}
+    if bad:
+        raise AssertionError(f"{what}: kernel launches {bad}, want "
+                             f"{ {r: want_launches[r] for r in bad} }")
+    return n
+
+
+def bench_twin(attention, lstm, ftb, smi, serve_s, train_ms):
+    """Phase 13: the bench twin's serving and train lines, and its FLOP
+    count on every route. Returns the attention launches of the counted
+    serving forward and train step."""
+    from aero_tpu_torch.models.factory import (
+        CANONICAL_AERO_4_16, build_generator)
+    from aero_tpu_torch.utils.flops import count_flops
+
+    serve, serve_launches = run_bench(False, smi)
+    train, train_launches = run_bench(True, smi)
+    log(f"bench twin serving {serve['value']:.2f}x realtime ({serve['mode']}"
+        f", the minimum of 3 reps of 5) against phase 6's "
+        f"{BATCH * SECONDS / serve_s:.2f}x (median of 5 through EvalForward)"
+        f": {serve['value'] * serve_s / (BATCH * SECONDS) - 1:+.1%}; train "
+        f"step {train['step_ms']:.1f} ms (median of 3 reps of 8) against "
+        f"phase 7's {train_ms:.1f} ms (median of 5): "
+        f"{train['step_ms'] / train_ms - 1:+.1%}; MFU {serve['mfu']:.4f} | "
+        f"{train['mfu']:.4f} [{smi}]")
+    want_serve = {"attention_fwd": 4, "attention_bwd": 0, "lstm": 0,
+                  "ftb": 0}
+    want_train = dict(want_serve, attention_bwd=8)
+    if serve_launches != want_serve or train_launches != want_train:
+        raise AssertionError(f"bench twin launches {serve_launches} | "
+                             f"{train_launches}, want {want_serve} | "
+                             f"{want_train}")
+
+    counted = (attention, lstm, ftb)
+    plain = plain_swaps(*counted)
+    # AERO_ATTN_BAND changes the function (fewer pairs), so its count too:
+    # the route check takes the two switches that keep the function
+    optin = {k: OPT_IN[k] for k in ("AERO_LSTM_KERNEL", "AERO_FTB_KERNEL")}
+    none = {"attention": 0, "attention_mma": 0, "banded": 0, "lstm": 0,
+            "lstm_mma": 0, "ftb": 0, "ftb_mma": 0}
+    gen = build_generator(CANONICAL_AERO_4_16, "bfloat16", "cuda",
+                          seed=0).eval()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((0.1 * rng.standard_normal(
+        (BATCH, 1, SECONDS * LR_SR))).astype(np.float32)).cuda()
+
+    @torch.inference_mode()
+    def forward(lr):
+        return gen(lr)
+
+    def serve_count():
+        zero_counts(*counted)
+        n = count_flops(forward, x).total
+        return n, launch_counts(*counted)
+
+    runs = {"kernels": serve_count(),
+            "plain": forward_with(plain, serve_count)}
+    with switches(optin):
+        runs["opt-in"] = serve_count()
+        runs["opt-in plain"] = forward_with(plain, serve_count)
+    n_serve = count_checked(
+        f"serving forward B={BATCH} x {SECONDS} s", runs, JAX_SERVE_FLOPS, {
+            "kernels": dict(none, attention=4, attention_mma=4),
+            "plain": none, "opt-in plain": none,
+            "opt-in": dict(none, attention=4, attention_mma=4, lstm=8,
+                           lstm_mma=8, ftb=4, ftb_mma=4)})
+    del gen
+    models, step, lr, hr = train_setup("bfloat16", BATCH)
+
+    def train_count():
+        zero_attention_counts(attention)
+        n = count_flops(step.grads, lr, hr).total
+        return n, attention_counts(attention)
+
+    runs = {"kernels": train_count(),
+            "plain": forward_with({(attention, "local_attention"):
+                                   plain_attention(attention)}, train_count)}
+    with switches(optin):
+        runs["opt-in"] = train_count()
+    kernels = {"forward": 4, "forward_mma": 4, "backward": 8,
+               "backward_mma": 8}
+    n_train = count_checked(
+        f"train step B={BATCH} x 2 s", runs, PORT_TRAIN_FLOPS,
+        {"kernels": kernels, "opt-in": kernels,
+         "plain": dict.fromkeys(kernels, 0)})
+    log(f"FLOPs against the JAX walker: serving {n_serve} / "
+        f"{JAX_SERVE_FLOPS} = {n_serve / JAX_SERVE_FLOPS:.6f}; train step "
+        f"{n_train} / {PORT_TRAIN_FLOPS} (its count of the same step) = "
+        f"{n_train / PORT_TRAIN_FLOPS:.6f}, / {JAX_TRAIN_FLOPS} (default "
+        f"lowering) = {n_train / JAX_TRAIN_FLOPS:.4f}, / "
+        f"{JAX_TRAIN_GROUPED_FLOPS} (grouped) = "
+        f"{n_train / JAX_TRAIN_GROUPED_FLOPS:.4f}")
+    if (serve["model_tflops"] != round(n_serve / 1e12, 4)
+            or train["model_tflops"] != round(n_train / 1e12, 4)):
+        raise AssertionError(f"bench twin model_tflops {serve['model_tflops']}"
+                             f" | {train['model_tflops']} against the counts "
+                             f"here {n_serve} | {n_train}")
+    del models, step
+    torch.cuda.empty_cache()
+    return serve_launches, train_launches
+
+
 DDP_BATCH = 4  # the float32 step: 2 rows on each of 2 ranks
 DDP_LOSS_TOL, DDP_GRAD_TOL = 1e-5, 1e-4  # relative; L2 for a gradient
 # The canonical generator's float32 gradient moves by ~2.5e-4 relative L2
@@ -2314,7 +2565,8 @@ def main():
         lstm_err = check_lstm(lstm)
         ftb_err = check_ftb(ftb)
     with phase("6 serving"):
-        serve_launches, optin_launches = serving(attention, lstm, ftb, smi)
+        serve_launches, optin_launches, serve_s = serving(
+            attention, lstm, ftb, smi)
     with phase("7 training"):
         train_gaps(attention)
         train_launches, train_ms = training(attention, smi)
@@ -2329,6 +2581,9 @@ def main():
         ddp_launches = data_parallel(smi, train_ms)
     with phase("12 generator options"):
         options = generator_options(attention, lstm, ftb, smi)
+    with phase("13 bench twin"):
+        twin_serve, twin_train = bench_twin(attention, lstm, ftb, smi,
+                                            serve_s, train_ms)
 
     def per_step(key):  # 2 calls at each train shape per step
         return 2 * (nums["train_enc2"][key] + nums["train_enc3"][key])
@@ -2375,6 +2630,11 @@ def main():
     for i, key in enumerate(("forward_mma", "backward_mma")):
         kernels[i]["launches_options_train_dconv3_step"] = \
             options["train_dconv3"][key]
+    # phase 13: the bench twin's counted serving forward (4) and train
+    # step (4 + 8), in its own process
+    kernels[0]["launches_bench_twin_serving"] = twin_serve["attention_fwd"]
+    for i, key in enumerate(("attention_fwd", "attention_bwd")):
+        kernels[i]["launches_bench_twin_step"] = twin_train[key]
     kernels += [
         optin_entry("local_attention_banded_fwd", "local_attention_mma.cu",
                     "aero_tpu/ops/attention.py:180", optin_launches["banded"],
