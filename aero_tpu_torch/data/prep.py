@@ -74,6 +74,44 @@ def resample_tree(in_dir: str, out_dir: str, target_sr: int,
                           resample_np(audio, sr, target_sr), target_sr)
 
 
+def make_speech_like(sr: int = 16000, duration: float = 3.0,
+                     seed: int = 0) -> np.ndarray:
+    """A broadband speech-like test signal, float32 [n]: voiced harmonics
+    shaped by six random formants, a syllabic envelope with pauses, and
+    fricative noise bursts. Every structure (pitch contour, formants,
+    rhythm) comes from ``seed``, so two seeds give unrelated utterances.
+    The ViSQOL calibration's signal (``tools/visqol_divergence_matrix.py``
+    of this package); the same draws in the same order as
+    ``aero_tpu.data.prep``'s, so the samples are equal bit for bit."""
+    rng = np.random.default_rng(seed)
+    n = int(sr * duration)
+    t = np.arange(n) / sr
+    f0_base = rng.uniform(90, 220)
+    f0 = f0_base * (1 + 0.2 * np.sin(2 * np.pi * rng.uniform(0.4, 1.2) * t
+                                     + rng.uniform(0, 6))
+                    + 0.08 * np.sin(2 * np.pi * rng.uniform(1.8, 3.2) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    formants = [(rng.uniform(300, 800), 80), (rng.uniform(1000, 1900), 120),
+                (rng.uniform(2200, 3000), 180), (rng.uniform(3200, 4200), 250),
+                (rng.uniform(4800, 6000), 400), (rng.uniform(6500, 7600), 600)]
+    voiced = np.zeros(n)
+    for h in range(1, 90):
+        fh = f0_base * h
+        if fh > sr / 2 * 0.98:
+            break
+        w = sum(1.0 / ((fh - fc) ** 2 / bw ** 2 + 1) for fc, bw in formants)
+        voiced += w * np.sin(h * phase + rng.uniform(0, 2 * np.pi))
+    syl = rng.uniform(0.9, 1.6)
+    env = np.clip(np.sin(2 * np.pi * syl * t + rng.uniform(0, 6)) + 0.55,
+                  0, None) ** 1.5
+    voiced *= env
+    fric = np.diff(rng.standard_normal(n), prepend=0.0)
+    fric_env = np.clip(np.sin(2 * np.pi * syl * t + np.pi) + 0.2, 0, None) ** 2
+    sig = voiced / np.abs(voiced).max() \
+        + 0.35 * fric * fric_env / np.abs(fric).max()
+    return (0.3 * sig / np.abs(sig).max()).astype(np.float32)
+
+
 def make_dummy_dataset(out_dir: str, lr_sr: int = 4000, hr_sr: int = 16000,
                        n_files: int = 8, duration: float = 2.5,
                        seed: int = 0) -> str:

@@ -33,6 +33,7 @@ and the per-query decay ``w`` ``[B, T, H]``; outputs match.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -287,11 +288,33 @@ def local_attention(q, k, v, w, band: int = 0):
     forward by ``forward_route``: inputs that require a gradient go through
     ``_LocalAttention``, whose backward kernels ``backward_route`` names.
     Anything the kernels do not take raises. Either route counts as
-    ``flops.attention_flops`` (its backward twice that) in a FLOP count.
+    ``flops.attention_flops`` (its backward twice that) in a FLOP count,
+    and inside ``recording`` the call's inputs are recorded.
     """
+    for calls in _RECORDINGS:
+        calls.append((q, k, v, w))
     fwd = flops.attention_flops(*q.shape, band=band)
     return flops.counted("attention", fwd, 2 * fwd, _local_attention,
                          q, k, v, w, band)
+
+
+# the lists of the ``recording`` blocks open now
+_RECORDINGS: list = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, each ``local_attention`` call appends its inputs
+    (q, k, v, w), the tensors themselves, to the list this yields, in call
+    order: what the JAX package's LocalState sows as ``attn_inputs``
+    (``aero_tpu/models/modules.py:894-896``) and
+    ``aero_tpu_torch/tools/attn_band_probe.py`` reads."""
+    calls: list = []
+    _RECORDINGS.append(calls)
+    try:
+        yield calls
+    finally:
+        _RECORDINGS.remove(calls)
 
 
 def _local_attention(q, k, v, w, band):

@@ -157,7 +157,34 @@ prints its time:
    step with the kernels, under the plain swaps and with AERO_LSTM_KERNEL=1
    AERO_FTB_KERNEL=1 (and the serving forward with both), which must be
    one number each, within 1% of the JAX walker's count of the same work
-   (JAX_SERVE_FLOPS, PORT_TRAIN_FLOPS).
+   (JAX_SERVE_FLOPS, PORT_TRAIN_FLOPS);
+14. the port's tools (``repro_and_tools``, in ``build/phase14``, removed
+   after): (a) ``bash aero_tpu_torch/tools/repro_vctk.sh --dry-run`` as a
+   subprocess (108 synthesized speakers, resampling and egs jsons for real,
+   the 100/8 split), then the train and test commands it printed, run in
+   this process through ``main`` of the CLIs with two overrides appended:
+   ``epochs=1`` (for 125) and ``visqol=false`` (the utterances last 0.25 s,
+   under ViSQOL's patch, so the scorer fails on each by design): 4 forward
+   and 8 backward attention launches a step on the tensor cores, a finite
+   history and test LSD, a checkpoint.atpu; (b) the band probe
+   (``aero_tpu_torch.tools.attn_band_probe``) at its defaults on (a)'s
+   checkpoint: the float32 forward on the card (4 launches on the SIMT
+   kernel, at enc2's [8, 2501, 4, 12] twice and enc3's [4, 2501, 4, 24]
+   twice) and its table, then at each site and W in 32 .. 512 the float32
+   kernels, exact and banded, on the captured inputs, each against its
+   plain version (atol 1e-3) and their row-wise relative difference against
+   the probe's dense out_rel_max within 1e-4 absolute; the same in
+   bfloat16 on the tensor cores, printed; (c) ``main`` of
+   ``aero_tpu_torch.tools.train_variants which=8-24,11-44 epochs=1`` and
+   of ``aero_tpu_torch.tools.ab_precision epochs=1 n_files=16``, each train
+   CLI subprocess they start run as ``main`` of the train CLI in its run
+   directory instead (in this process, so that the launches are counted):
+   aero_8-24_512_64 and aero_11-44_512_64 with MPD + MSD and accum_steps 4
+   (bf16, B 16, 48 files of 3 s), the canonical config in float32 and
+   bfloat16 (B 8, 16 files): each run one finite epoch with 4 forward and 8
+   backward attention launches per microbatch (on the tensor cores in
+   bfloat16, on the SIMT kernels in float32); each run's step times, peak
+   memory, ViSQOL average and the files the scorer failed on, printed.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and the result JSON.
@@ -173,6 +200,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2505,6 +2533,284 @@ def optin_entry(name, src, replaces, launches, err, rows, per_forward):
     return entry
 
 
+# --- phase 14: the repro pipeline, the band probe, the variants and the
+# precision A/B, through the port's tools ---------------------------------
+
+PHASE14_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase14")
+PROBE_SECONDS, PROBE_WIDTHS = 10.0, (32, 64, 128, 256, 512)  # its defaults
+# the probe's four sites, [B*F, T, H, C'] at 10 s: enc2's two, enc3's two
+PROBE_SHAPES = [(8, 2501, 4, 12)] * 2 + [(4, 2501, 4, 24)] * 2
+# the float32 kernels' row-wise banded-vs-exact difference against the
+# probe's dense float32 out_rel_max, absolute
+PROBE_REL_TOL = 1e-4
+# the four tool runs of (c): (label, precision, accum_steps) in run order
+TOOL_RUNS = (("variant_8-24", "bfloat16", 1),
+             ("variant_11-44_hifi", "bfloat16", 4),
+             ("ab_precision_float32", "float32", 1),
+             ("ab_precision_bfloat16", "bfloat16", 1))
+
+
+def step_want(precision, accum):
+    """The attention launches of one train step: 4 forward and 8 backward
+    kernels per microbatch, on the tensor cores in bfloat16."""
+    mma = int(precision == "bfloat16")
+    return {"forward": 4 * accum, "forward_mma": 4 * accum * mma,
+            "backward": 8 * accum, "backward_mma": 8 * accum * mma}
+
+
+def returned(values):
+    """``make`` for ``wrapped``: each call appends its return value."""
+    def make(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            values.append(out)
+            return out
+        return call
+    return make
+
+
+@contextlib.contextmanager
+def train_recorders(attention, st, run):
+    """Within ``st``: each train step's (seconds, launches) in
+    ``run["steps"]``, each epoch's in ``run["epochs"]`` and each ViSQOL
+    score in ``run["visqol"]`` (0 where the scorer failed on a file);
+    around the block the attention counts set to 0 and the peak memory
+    reset before, and read after."""
+    from aero_tpu_torch.eval import metrics as eval_metrics
+    from aero_tpu_torch.train.solver import Solver
+    from aero_tpu_torch.train.train_step import TrainStep
+
+    for key in ("steps", "epochs", "visqol"):
+        run[key] = []
+    st.enter_context(wrapped(TrainStep, "__call__", recorder(
+        attention, run["steps"], sync=True)))
+    st.enter_context(wrapped(Solver, "_run_one_epoch", recorder(
+        attention, run["epochs"], sync=True)))
+    st.enter_context(wrapped(eval_metrics, "get_visqol",
+                             returned(run["visqol"])))
+    zero_attention_counts(attention)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    run["seconds"] = time.perf_counter() - t0
+    run["launches"] = attention_counts(attention)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_run(run, label, precision, accum, smi):
+    """Log the numbers of ``run``; raise unless every step launched
+    ``step_want`` and its history holds one epoch, all finite."""
+    want = step_want(precision, accum)
+    bad = [c[1] for c in run["steps"] if c[1] != want]
+    step_ms = [c[0] * 1e3 for c in run["steps"]]
+    scores = run["visqol"]
+    failed = sum(s == 0.0 for s in scores)
+    scored = [s for s in scores if s != 0.0]
+    hist = run["history"][-1] if run["history"] else {}
+    log(f"{label}: {len(step_ms)} steps of {accum} microbatch(es), "
+        f"median step {statistics.median(step_ms or [math.nan]):.1f} ms "
+        f"(first {step_ms[0] if step_ms else math.nan:.0f}), epoch "
+        f"{', '.join(f'{e[0]:.2f}' for e in run['epochs'])} s, whole run "
+        f"{run['seconds']:.1f} s, peak memory {run['peak_gib']:.2f} GiB; "
+        f"attention launches {run['launches']}; ViSQOL "
+        + (f"average {statistics.mean(scored):.4f} over {len(scored)} files,"
+           if scored else "none scored,")
+        + f" scorer failed on {failed} of {len(scores)} files; history: "
+        f"LSD {hist.get('Average lsd')}, ViSQOL {hist.get('Average visqol')}"
+        f", valid {hist.get('evaluation_loss')} [{smi}]")
+    if not run["steps"] or bad:
+        raise AssertionError(f"{label}: {len(run['steps'])} steps, launches "
+                             f"per step not {want}: {bad[:3]}")
+    numbers = [v for v in hist.values() if isinstance(v, (int, float))]
+    if len(run["history"]) != 1 or not numbers or not all(
+            math.isfinite(v) for v in numbers):
+        raise AssertionError(f"{label}: history {run['history']}")
+
+
+def repro_pipeline(attention, smi, root):
+    """Phase 14 (a): the port's repro script's dry run, then the train and
+    test commands it printed, run in this process through ``main`` of the
+    CLIs with ``epochs=1`` (one epoch, not 125) and ``visqol=false`` (the
+    synthesized utterances last 0.25 s, under ViSQOL's patch) appended.
+    Returns the run's checkpoint.atpu and its train launches."""
+    from aero_tpu_torch import test as test_cli
+    from aero_tpu_torch.train import __main__ as train_cli
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "aero_tpu_torch", "tools", "repro_vctk.sh")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", script, "--dry-run",
+                           os.path.join(root, "repro")],
+                          env=dict(os.environ, PYTHON=sys.executable),
+                          capture_output=True, text=True, timeout=300)
+    log(proc.stdout.strip())
+    log(f"repro dry run: {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0 or "split OK: 100 train / 8 test speakers" \
+            not in proc.stdout or "dry-run PASSED" not in proc.stdout:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"repro dry run exited {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    at = lines.index("[repro] dry-run: would execute:")
+    train_cmd, test_cmd = (line.split() for line in lines[at + 1:at + 3])
+    for cmd, cli in ((train_cmd, "train"), (test_cmd, "test")):
+        if cmd[:3] != [sys.executable, "-m", f"aero_tpu_torch.{cli}"]:
+            raise AssertionError(f"repro printed {cmd[:3]} for the {cli} "
+                                 "CLI")
+    appended = ["epochs=1", "visqol=false"]
+    run_root = os.path.join(root, "repro_run")
+    os.makedirs(run_root)
+    run = {}
+    cwd = os.getcwd()
+    with contextlib.ExitStack() as st:
+        os.chdir(run_root)
+        st.callback(os.chdir, cwd)
+        with train_recorders(attention, st, run):
+            run["history"] = train_cli.main(train_cmd[3:] + appended)
+        t0 = time.perf_counter()
+        results = test_cli.main(test_cmd[3:] + appended)
+        t_test = time.perf_counter() - t0
+    ckpts = glob.glob(os.path.join(run_root, "outputs", "*", "*",
+                                   "checkpoint.atpu"))
+    check_run(run, "repro_canonical_1ep (train CLI)", "bfloat16", 1, smi)
+    log(f"repro_canonical_1ep: test CLI {t_test:.2f} s on "
+        f"{results['n_files']} files, LSD {results['lsd']}; {ckpts}")
+    if not math.isfinite(results["lsd"]) or len(ckpts) != 1:
+        raise AssertionError(f"repro test CLI {results}, checkpoints "
+                             f"{ckpts}")
+    return ckpts[0], run["launches"]
+
+
+def row_rel(got, want) -> float:
+    """max over rows (b, s, h) of ||got - want|| / max(||want||, 1e-12),
+    in float64: the probe's out_rel."""
+    got, want = got.double(), want.double()
+    return float(((got - want).norm(dim=-1)
+                  / want.norm(dim=-1).clamp_min(1e-12)).max())
+
+
+def probe_check(attention, smi, checkpoint):
+    """Phase 14 (b): the band probe at its defaults on ``checkpoint``
+    (float32 forward on the card, its table printed), then at each site
+    and W the float32 kernels, exact and banded, on the captured inputs:
+    each against its plain version (F32_ATOL), and their row-wise
+    difference against the probe's dense out_rel_max (PROBE_REL_TOL); the
+    same in bfloat16 on the tensor cores, printed. Returns the probe
+    forward's launches."""
+    from aero_tpu_torch.tools import attn_band_probe
+
+    zero_attention_counts(attention)
+    t0 = time.perf_counter()
+    sites, per_site, _ = attn_band_probe.probe(
+        checkpoint, PROBE_SECONDS, PROBE_WIDTHS, torch.device("cuda"))
+    launches = attention_counts(attention)
+    log(f"band probe: {time.perf_counter() - t0:.1f} s, forward launches "
+        f"{launches} [{smi}]")
+    shapes = [tuple(s[0].shape) for _, s in sites]
+    if shapes != PROBE_SHAPES or launches != {
+            "forward": len(PROBE_SHAPES), "forward_mma": 0, "backward": 0,
+            "backward_mma": 0}:
+        raise AssertionError(f"probe sites {shapes}, launches {launches}")
+    fn, plain = attention.local_attention, plain_attention(attention)
+    worst = 0.0
+    for name, (q, k, v, w) in sites:
+        rows = {r[0]: r for r in per_site[name]}
+        low = [x.to(torch.bfloat16) for x in (q, k, v)]
+        exact, exact_bf16 = fn(q, k, v, w), fn(*low, w)
+        mma = fn.mma_launches
+        for band in (0,) + PROBE_WIDTHS:
+            got = fn(q, k, v, w, band=band)
+            err = (got - plain(q, k, v, w, band=band)).abs().max().item()
+            if fn.mma_launches != mma or not err <= F32_ATOL:
+                raise AssertionError(f"{name} band {band}: float32 kernel "
+                                     f"vs plain {err} (atol {F32_ATOL}), "
+                                     "or not on the SIMT kernel")
+            if band == 0:
+                continue
+            rel, dense = row_rel(got, exact), float(rows[band][3])
+            rel_bf16 = row_rel(fn(*low, w, band=band), exact_bf16)
+            if fn.mma_launches != mma + 1:
+                raise AssertionError(f"{name} band {band}: bfloat16 not on "
+                                     "the tensor cores")
+            mma = fn.mma_launches
+            gap = abs(rel - dense)
+            worst = max(worst, gap)
+            log(f"  {name} W {band:3d}: banded vs exact, f32 kernels "
+                f"{rel:.4e}, probe {dense:.4e} (|gap| {gap:.2e}); bf16 "
+                f"kernels {rel_bf16:.4e}; f32 kernel vs plain {err:.2e}")
+            if not gap <= PROBE_REL_TOL:
+                raise AssertionError(f"{name} W {band}: kernels' banded vs "
+                                     f"exact {rel} against the probe's "
+                                     f"{dense} (tol {PROBE_REL_TOL})")
+    log(f"band probe: kernels against the probe's out_rel_max, worst |gap| "
+        f"{worst:.3e} (tol {PROBE_REL_TOL:g})")
+    return launches
+
+
+def tool_runs(attention, smi, root):
+    """Phase 14 (c): ``python -m aero_tpu_torch.tools.train_variants
+    which=8-24,11-44 epochs=1`` and ``python -m
+    aero_tpu_torch.tools.ab_precision epochs=1 n_files=16``, their
+    ``main`` in this process, each train subprocess they start run as
+    ``main`` of the train CLI in its run directory instead (so that the
+    launches are counted). Returns the four runs."""
+    from aero_tpu_torch.tools import _runs, ab_precision, train_variants
+    from aero_tpu_torch.train import __main__ as train_cli
+
+    runs = []
+
+    def make(original):
+        def run_train(cmd, run_dir, capture=False):
+            if list(cmd[:3]) != _runs.TRAIN:
+                raise AssertionError(f"a tool ran {cmd[:3]}")
+            run = {"cmd": list(cmd)}
+            cwd = os.getcwd()
+            with contextlib.ExitStack() as st:
+                os.chdir(run_dir)
+                st.callback(os.chdir, cwd)
+                with train_recorders(attention, st, run):
+                    run["history"] = train_cli.main(list(cmd[3:]))
+            runs.append(run)
+            return subprocess.CompletedProcess(list(cmd), 0, "", "")
+        return run_train
+
+    with wrapped(_runs, "run_train", make):
+        rc_variants = train_variants.main([
+            "which=8-24,11-44", "epochs=1", f"out={root}/variants"])
+        rc_ab = ab_precision.main([
+            "epochs=1", "n_files=16", f"out={root}/ab_precision"])
+    if rc_variants or rc_ab or len(runs) != len(TOOL_RUNS):
+        raise AssertionError(f"train_variants exited {rc_variants}, "
+                             f"ab_precision {rc_ab}, {len(runs)} runs")
+    for run, (label, precision, accum) in zip(runs, TOOL_RUNS):
+        if f"precision={precision}" not in run["cmd"] or (
+                f"accum_steps={accum}" in run["cmd"]) != (accum > 1):
+            raise AssertionError(f"{label}: {run['cmd']}")
+        check_run(run, label, precision, accum, smi)
+    return runs
+
+
+def repro_and_tools(attention, smi):
+    """Phase 14: (a) ``repro_pipeline``, (b) ``probe_check`` on its
+    checkpoint, (c) ``tool_runs``, in ``build/phase14`` (removed after).
+    Returns the train launches of (a) and (c) and the probe's."""
+    shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+    os.makedirs(PHASE14_DIR)
+    with phase("14 (a) repro pipeline"):
+        checkpoint, repro = repro_pipeline(attention, smi, PHASE14_DIR)
+    with phase("14 (b) band probe"):
+        probe = probe_check(attention, smi, checkpoint)
+    with phase("14 (c) variants and precision A/B"):
+        runs = tool_runs(attention, smi, PHASE14_DIR)
+    shutil.rmtree(PHASE14_DIR)
+    launches = {"repro_canonical_1ep": repro}
+    for run, (label, _, _) in zip(runs, TOOL_RUNS):
+        launches[label] = run["launches"]
+    return launches, probe
+
+
 def main():
     smi = card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2584,6 +2890,8 @@ def main():
     with phase("13 bench twin"):
         twin_serve, twin_train = bench_twin(attention, lstm, ftb, smi,
                                             serve_s, train_ms)
+    with phase("14 repro, band probe, variants"):
+        tool_launches, probe_launches = repro_and_tools(attention, smi)
 
     def per_step(key):  # 2 calls at each train shape per step
         return 2 * (nums["train_enc2"][key] + nums["train_enc3"][key])
@@ -2635,6 +2943,13 @@ def main():
     kernels[0]["launches_bench_twin_serving"] = twin_serve["attention_fwd"]
     for i, key in enumerate(("attention_fwd", "attention_bwd")):
         kernels[i]["launches_bench_twin_step"] = twin_train[key]
+    # phase 14: the train launches of the repro run (a) and of the four
+    # tool runs (c), whole runs (the float32 A/B arm on the SIMT kernels);
+    # the band probe's float32 forward (b): 4 on the SIMT kernel
+    for i, key in enumerate(("forward", "backward")):
+        kernels[i]["launches_phase14"] = {
+            label: counts[key] for label, counts in tool_launches.items()}
+    kernels[0]["launches_band_probe_forward_f32"] = probe_launches["forward"]
     kernels += [
         optin_entry("local_attention_banded_fwd", "local_attention_mma.cu",
                     "aero_tpu/ops/attention.py:180", optin_launches["banded"],

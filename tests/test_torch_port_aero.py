@@ -54,15 +54,35 @@ def _jax_kwargs(kw):
     return kw
 
 
-@pytest.mark.parametrize("config,seconds", [(TINY, 1.0), (NARROW, 3.0)],
-                         ids=["tiny", "narrow_canonical"])
-def test_forward_matches_jax(config, seconds):
+def _at_rates(config, lr_sr, hr_sr):
+    return dict(config, lr_sr=lr_sr, hr_sr=hr_sr)
+
+
+# (config, input samples): 4->16 at 1 s and 3 s, and the tiny width at the
+# other shipped rate ratios (conf/experiment/aero_*_512_64.yaml): 8->24 is
+# scale 3 (analysis hop 64 // 3 = 21, window 170), at a length the hop
+# divides and one it does not; 11.025->44.1, 12->48 (scale 4) and 8->16
+# (scale 2)
+FORWARD_CASES = {
+    "tiny": (TINY, 4000),
+    "narrow_canonical": (NARROW, 12000),
+    "tiny_8-24_8064": (_at_rates(TINY, 8000, 24000), 8064),
+    "tiny_8-24_8000": (_at_rates(TINY, 8000, 24000), 8000),
+    "tiny_11-44": (_at_rates(TINY, 11025, 44100), 5512),
+    "tiny_12-48": (_at_rates(TINY, 12000, 48000), 6000),
+    "tiny_8-16": (_at_rates(TINY, 8000, 16000), 4000),
+}
+
+
+@pytest.mark.parametrize("case", list(FORWARD_CASES))
+def test_forward_matches_jax(case):
     """narrow_canonical at 3 s: T = 751 frames, so BLSTM chunking and the
     T > 512 attention dispatch both run."""
+    config, n = FORWARD_CASES[case]
+    scale = config["hr_sr"] // config["lr_sr"]
     jm = JaxAero(**_jax_kwargs(config))
     rng = np.random.default_rng(0)
-    x = (0.1 * rng.standard_normal((2, 1, int(4000 * seconds)))).astype(
-        np.float32)
+    x = (0.1 * rng.standard_normal((2, 1, n))).astype(np.float32)
     v = jax.jit(lambda k, y: jm.init(k, y, train=False))(
         jax.random.PRNGKey(0), jnp.asarray(x))
     v = {"params": rescale_tree(v["params"], config["rescale"]),
@@ -75,7 +95,7 @@ def test_forward_matches_jax(config, seconds):
     port.load_state_dict(state_dict_from_jax(v), strict=True)
     with torch.no_grad():
         got = port(torch.from_numpy(x)).numpy()
-    assert got.shape == want.shape == (2, 1, 4 * x.shape[-1])
+    assert got.shape == want.shape == (2, 1, scale * n)
     # float32 on the CPU; relative to the output's scale
     np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
 

@@ -6,6 +6,7 @@ import every module in a fresh interpreter."""
 import ast
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -19,6 +20,12 @@ PORT_SOURCES = sorted(
     glob.glob(os.path.join(ROOT, "aero_tpu_torch", "**", "*.py"),
               recursive=True)) + ["chip_smoke.py"]
 FORBIDDEN = ("aero_tpu", "jax", "jaxlib", "flax")
+SHELL_SOURCES = sorted(
+    os.path.relpath(p, ROOT) for p in
+    glob.glob(os.path.join(ROOT, "aero_tpu_torch", "**", "*.sh"),
+              recursive=True))
+# a quoted heredoc: <<'EOF' ... EOF
+HEREDOC = re.compile(r"<<'(\w+)'\n(.*?)\n\1\n", re.S)
 
 
 def _imported_modules(tree):
@@ -38,6 +45,31 @@ def test_port_source_imports_nothing_of_jax_package(source):
     bad = sorted(name for name in _imported_modules(tree)
                  if name.split(".")[0] in FORBIDDEN)
     assert not bad, f"{source} imports {bad}"
+
+
+def test_shell_scripts_exist():
+    assert "aero_tpu_torch/tools/repro_vctk.sh" in SHELL_SOURCES
+
+
+@pytest.mark.parametrize("source", SHELL_SOURCES)
+def test_port_shell_script_runs_nothing_of_jax_package(source):
+    """The script's inline Python (its quoted heredocs) imports nothing of
+    JAX or the JAX package, each ``-m`` module it runs is the port's, and
+    it runs no Python file (the root scripts drive the JAX package)."""
+    with open(os.path.join(ROOT, source)) as f:
+        text = f.read()
+    blocks = [body for _, body in HEREDOC.findall(text)]
+    assert blocks, f"{source}: no inline Python found"
+    for body in blocks:
+        bad = sorted(name for name in _imported_modules(ast.parse(body))
+                     if name.split(".")[0] in FORBIDDEN)
+        assert not bad, f"{source} inline Python imports {bad}"
+    shell = "\n".join(line for line in HEREDOC.sub("", text).splitlines()
+                      if not line.lstrip().startswith("#"))
+    modules = re.findall(r"-m\s+([\w.]+)", shell)
+    assert modules and all(m.split(".")[0] == "aero_tpu_torch"
+                           for m in modules), modules
+    assert not re.findall(r"\S+\.py\b", shell)
 
 
 def test_static_import_check_sees_nested_imports():
