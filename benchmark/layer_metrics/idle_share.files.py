@@ -1,0 +1,12 @@
+"""Share of the profiled part's wall time in which no operation ran on the
+device."""
+
+from __future__ import annotations
+
+UNIT = "%"
+
+
+def read(trace):
+    if trace["window_s"] <= 0 or trace["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - trace["busy_s"] / trace["window_s"])
