@@ -11,6 +11,12 @@ reference predict does, optionally running all full chunks as one batch,
 split over generator replicas on several devices, and optionally padding
 the ragged tail to a whole chunk.
 ``make_spec_fns`` gives the spectra that the evaluation's PNGs plot.
+
+Under a profiler, a file is the span ``serve.file`` and its steps are
+``serve.split`` (full chunks stacked into the batch axis), ``serve.upload``
+(the bucket pad and the host-to-device copy), ``serve.forward`` (the
+generator's launches), ``serve.download`` (the wait and the device-to-host
+copy) and ``serve.join`` (the outputs put back in order).
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import typing as tp
 
 import numpy as np
 import torch
+
+from aero_tpu_torch.utils.profiling import annotate
 
 
 def bucket_target(n: int, bucket: int) -> int:
@@ -49,7 +57,14 @@ class EvalForward:
     ``scale`` is output length over input length (4 for 4->16 kHz).
     ``return_spec``: calls return (pr, pr_spec, lr_spec), the spectra as
     complex numpy arrays [B, C, F, T] of the padded input.
+
+    Counters, on the class, over every instance: ``samples``, the input
+    samples forwarded (rows × padded length), and ``padded_samples``, the
+    part of them that the bucket pad added.
     """
+
+    samples = 0
+    padded_samples = 0
 
     def __init__(self, gen: torch.nn.Module, scale: float, lr_sr: int,
                  device, bucket_s: float = 1.0, return_spec: bool = False):
@@ -66,17 +81,22 @@ class EvalForward:
 
     def _input(self, lr: np.ndarray) -> torch.Tensor:
         """``lr`` padded to its bucket, on the device."""
-        t = lr.shape[-1]
-        padded_t = t if self.bucket <= 0 else bucket_target(t, self.bucket)
-        x = _pad_reflect_tail(np.asarray(lr, np.float32), padded_t)
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        with annotate("serve.upload"):
+            t = lr.shape[-1]
+            padded_t = t if self.bucket <= 0 else bucket_target(t, self.bucket)
+            x = _pad_reflect_tail(np.asarray(lr, np.float32), padded_t)
+            rows = math.prod(x.shape[:-1])
+            EvalForward.samples += rows * padded_t
+            EvalForward.padded_samples += rows * (padded_t - t)
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def _run(self, x: torch.Tensor, t: int) -> torch.Tensor:
         """The prediction of ``x = _input(lr)`` for ``t`` input samples,
         launched on the device and not awaited."""
-        with torch.inference_mode():
-            out = self.gen(x).float()
-        return out[..., :int(t * self.scale)]
+        with annotate("serve.forward"):
+            with torch.inference_mode():
+                out = self.gen(x).float()
+            return out[..., :int(t * self.scale)]
 
     def forward_tensor(self, lr: np.ndarray) -> torch.Tensor:
         """The prediction [B, 1, T * scale] as a float32 tensor on the
@@ -87,7 +107,9 @@ class EvalForward:
         """lr: [B, 1, T] numpy -> pr [B, 1, T * scale] float32 numpy (and
         the spectra with ``return_spec``)."""
         if not self.return_spec:
-            return self.forward_tensor(lr).cpu().numpy()
+            pr = self.forward_tensor(lr)
+            with annotate("serve.download"):
+                return pr.cpu().numpy()
         target = int(lr.shape[-1] * self.scale)
         with torch.inference_mode():
             pr, pr_spec, lr_spec = self.gen(self._input(lr), return_spec=True)
@@ -125,35 +147,46 @@ class ChunkedInference:
         self.replicas = list(replicas)
 
     def __call__(self, lr: np.ndarray) -> np.ndarray:
+        with annotate("serve.file"):
+            return self._file(lr)
+
+    def _file(self, lr: np.ndarray) -> np.ndarray:
         t = lr.shape[-1]
         if self.pad_tail and t % self.chunk:
             pad = self.chunk - t % self.chunk
             xp = np.pad(lr, [(0, 0)] * (lr.ndim - 1) + [(0, pad)],
                         mode="reflect" if pad < t else "wrap")
-            return self(np.ascontiguousarray(xp))[..., :int(t * self.scale)]
+            out = self._file(np.ascontiguousarray(xp))
+            return out[..., :int(t * self.scale)]
         n_chunks = max(1, math.ceil(t / self.chunk))
         if not self.batch_chunks or n_chunks == 1:
             outs = [np.asarray(self.forward(
                 lr[..., i * self.chunk:min((i + 1) * self.chunk, t)]))
                 for i in range(n_chunks)]
-            return np.concatenate(outs, axis=-1)
+            with annotate("serve.join"):
+                return np.concatenate(outs, axis=-1)
 
         n_full = t // self.chunk
-        outs = []
+        y = tail = None
         if n_full:
-            # [B, C, n_full, chunk] -> fold the chunks into the batch axis
-            stack = lr[..., :n_full * self.chunk].reshape(
-                *lr.shape[:-1], n_full, self.chunk)
-            stack = np.moveaxis(stack, -2, 0).reshape(
-                n_full * lr.shape[0], *lr.shape[1:-1], self.chunk)
+            with annotate("serve.split"):
+                # [B, C, n_full, chunk] -> fold the chunks into the batch axis
+                stack = lr[..., :n_full * self.chunk].reshape(
+                    *lr.shape[:-1], n_full, self.chunk)
+                stack = np.moveaxis(stack, -2, 0).reshape(
+                    n_full * lr.shape[0], *lr.shape[1:-1], self.chunk)
             y = self._batch(stack)
-            y = y.reshape(n_full, lr.shape[0], *y.shape[1:])
-            y = np.moveaxis(y, 0, -2).reshape(
-                *lr.shape[:-1], n_full * y.shape[-1])
-            outs.append(y)
         if n_full * self.chunk < t:
-            outs.append(np.asarray(self.forward(lr[..., n_full * self.chunk:])))
-        return np.concatenate(outs, axis=-1)
+            tail = np.asarray(self.forward(lr[..., n_full * self.chunk:]))
+        with annotate("serve.join"):
+            outs = []
+            if y is not None:
+                y = y.reshape(n_full, lr.shape[0], *y.shape[1:])
+                outs.append(np.moveaxis(y, 0, -2).reshape(
+                    *lr.shape[:-1], n_full * y.shape[-1]))
+            if tail is not None:
+                outs.append(tail)
+            return np.concatenate(outs, axis=-1)
 
     def _batch(self, stack: np.ndarray) -> np.ndarray:
         """The forward of a batch of full chunks, split over the replicas."""
@@ -167,7 +200,8 @@ class ChunkedInference:
         inputs = [fwd._input(part) for fwd, part in zip(self.replicas, parts)]
         outs = [fwd._run(x, self.chunk)
                 for fwd, x in zip(self.replicas, inputs)]
-        return np.concatenate([o.cpu().numpy() for o in outs])[:n]
+        with annotate("serve.download"):
+            return np.concatenate([o.cpu().numpy() for o in outs])[:n]
 
 
 def make_spec_fns(args, gen: torch.nn.Module):

@@ -11,6 +11,9 @@ frequency axis, later ones the time axis. Spectra are ``[B, C, F, T]``.
 Dtype policy: STFT, normalisation, de-normalisation and iSTFT in float32;
 the U-Net in ``compute_dtype`` (float32 or bfloat16), with float32
 parameters cast per layer.
+
+Under a profiler, each encoder layer's forward is the span ``aero.encoder``
+and each decoder layer's ``aero.decoder``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from aero_tpu_torch.models.modules import (
     ScaledEmbedding,
 )
 from aero_tpu_torch.ops.spec import ispectro, spectro
+from aero_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -267,7 +271,8 @@ class Aero(nn.Module):
         saved, lengths = [], []
         for index, enc in enumerate(self.encoder):
             lengths.append(x.shape[-1])
-            x = enc(x)
+            with annotate("aero.encoder"):
+                x = enc(x)
             self._log(f"encoder {index} out shape", x)
             if index == 0 and self.freq_emb is not None:
                 frs = torch.arange(x.shape[2], device=x.device)
@@ -277,7 +282,8 @@ class Aero(nn.Module):
 
         x = torch.zeros_like(x)  # the signal flows through the skips
         for j, dec in enumerate(self.decoder):
-            x = dec(x, saved.pop(-1), lengths.pop(-1))
+            with annotate("aero.decoder"):
+                x = dec(x, saved.pop(-1), lengths.pop(-1))
             self._log(f"decoder {j} out shape", x)
 
         x = x.float() * std + mean

@@ -20,6 +20,7 @@ from torch import nn
 from aero_tpu_torch.ops import attention, ftb, lstm
 from aero_tpu_torch.parallel import mesh
 from aero_tpu_torch.utils import flops
+from aero_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -248,7 +249,8 @@ class BLSTM(nn.Module):
     the Linear runs in the input's dtype. In eval mode with
     ``AERO_LSTM_KERNEL=1`` and a hidden width the kernel takes, each layer
     is one input-projection matmul and ``ops.lstm.lstm_recurrence`` in the
-    input's dtype, on ``nn.LSTM``'s own parameters.
+    input's dtype, on ``nn.LSTM``'s own parameters. Under a profiler a
+    forward is the span ``aero.blstm``.
     """
 
     MAX_STEPS = 200
@@ -260,30 +262,33 @@ class BLSTM(nn.Module):
         self.linear = Linear(2 * dim, dim)
 
     def forward(self, x):
-        n, c, t = x.shape
-        width = self.MAX_STEPS
-        framed = t > width
-        if framed:
-            stride = width // 2
-            frames = unfold_time(x, width, stride)  # [N, C, n_frames, W]
-            n_frames = frames.shape[2]
-            h = frames.permute(0, 2, 3, 1).reshape(n * n_frames, width, c)
-        else:
-            h = x.transpose(1, 2)                   # [N, T, C]
-        if (not self.training and lstm.enabled()
-                and lstm.takes_kernel(self.lstm.hidden_size)):
-            h = self._recurrence(h)
-        else:
-            h = self._lstm(h.float()).to(x.dtype)
-        h = self.linear(h)
-        if framed:
-            frames = h.reshape(n, n_frames, width, c)
-            limit = stride // 2
-            out = [frames[:, 0, :-limit]]
-            out += [frames[:, k, limit:-limit] for k in range(1, n_frames - 1)]
-            out.append(frames[:, n_frames - 1, limit:])
-            h = torch.cat(out, dim=1)[:, :t]
-        return x + h.transpose(1, 2)
+        with annotate("aero.blstm"):
+            n, c, t = x.shape
+            width = self.MAX_STEPS
+            framed = t > width
+            if framed:
+                stride = width // 2
+                frames = unfold_time(x, width, stride)  # [N, C, n_frames, W]
+                n_frames = frames.shape[2]
+                h = frames.permute(0, 2, 3, 1).reshape(n * n_frames, width,
+                                                       c)
+            else:
+                h = x.transpose(1, 2)                   # [N, T, C]
+            if (not self.training and lstm.enabled()
+                    and lstm.takes_kernel(self.lstm.hidden_size)):
+                h = self._recurrence(h)
+            else:
+                h = self._lstm(h.float()).to(x.dtype)
+            h = self.linear(h)
+            if framed:
+                frames = h.reshape(n, n_frames, width, c)
+                limit = stride // 2
+                out = [frames[:, 0, :-limit]]
+                out += [frames[:, k, limit:-limit]
+                        for k in range(1, n_frames - 1)]
+                out.append(frames[:, n_frames - 1, limit:])
+                h = torch.cat(out, dim=1)[:, :t]
+            return x + h.transpose(1, 2)
 
     def _lstm(self, h):
         """``nn.LSTM`` on [N, T, C] float32 (one cuDNN or oneDNN operator,

@@ -26,6 +26,13 @@ the B rows.
 Every discriminator of the JAX package is here: the MelGAN (hinge and
 feature losses) and HiFi-GAN's MSD and MPD (``msd_hifi``, ``mpd``, and
 ``hifi`` for both with the mel L1), with the JAX step's metric names.
+
+Under a profiler, a step is the span ``train.step``, and its parts are
+``train.upload``, then per microbatch ``train.gen_forward``,
+``train.disc_real``, ``train.gen_losses``, ``train.gen_backward``,
+``train.disc_losses`` and ``train.disc_backward``, then
+``train.reduce_fetch`` (the cross-rank reduce and the metrics' fetch, where
+the host waits for the device), ``train.gen_adam`` and ``train.disc_adam``.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from aero_tpu_torch.models.discriminators import SNConv1d
 from aero_tpu_torch.models.modules import BatchNorm
 from aero_tpu_torch.ops.mel import mel_spectrogram
 from aero_tpu_torch.parallel import mesh
+from aero_tpu_torch.utils.profiling import annotate
 
 _GEN_LOSSES = ("l1", "l2", "stft")
 
@@ -243,7 +251,8 @@ class TrainStep:
         which starts from the stored u, as in JAX). Under a group, ``lr``
         and ``hr`` are this rank's rows, and all of these are the global
         batch's, equal on every rank."""
-        lr, hr = self._tensor(lr), self._tensor(hr)
+        with annotate("train.upload"):
+            lr, hr = self._tensor(lr), self._tensor(hr)
         k = self.accum
         lr, hr = mesh.regroup_for_accum(lr, hr, k)
         if lr.shape[0] % k:
@@ -261,21 +270,27 @@ class TrainStep:
         for lr_mb, hr_mb in zip(lr.chunk(k), hr.chunk(k)):
             for m, u in zip(self.spectral, u0):
                 m.weight_u.copy_(u)
-            pr = self.gen(lr_mb)
-            for acc, bn in zip(bn_stats, self.batchnorms):
-                acc[0].add_(bn.batch_stats[0], alpha=1 / k)
-                acc[1].add_(bn.batch_stats[1], alpha=1 / k)
-            real = self.lc.real_outputs(hr_mb)
-            gen_losses = self.lc.generator_losses(pr, hr_mb, real,
-                                                  mesh.all_sum)
-            total = sum(gen_losses.values())
-            self._add_grads(gen_grads, total, self.gen_params, 1 / k)
+            with annotate("train.gen_forward"):
+                pr = self.gen(lr_mb)
+                for acc, bn in zip(bn_stats, self.batchnorms):
+                    acc[0].add_(bn.batch_stats[0], alpha=1 / k)
+                    acc[1].add_(bn.batch_stats[1], alpha=1 / k)
+            with annotate("train.disc_real"):
+                real = self.lc.real_outputs(hr_mb)
+            with annotate("train.gen_losses"):
+                gen_losses = self.lc.generator_losses(pr, hr_mb, real,
+                                                      mesh.all_sum)
+                total = sum(gen_losses.values())
+            with annotate("train.gen_backward"):
+                self._add_grads(gen_grads, total, self.gen_params, 1 / k)
             disc_losses = {}
             if self.disc_params:
-                disc_losses = self.lc.discriminator_losses(
-                    pr.detach(), real, store=True)
-                self._add_grads(disc_grads, sum(disc_losses.values()),
-                                self.disc_params, 1 / k)
+                with annotate("train.disc_losses"):
+                    disc_losses = self.lc.discriminator_losses(
+                        pr.detach(), real, store=True)
+                with annotate("train.disc_backward"):
+                    self._add_grads(disc_grads, sum(disc_losses.values()),
+                                    self.disc_params, 1 / k)
                 for acc, m in zip(u_sum, self.spectral):
                     acc.add_(m.weight_u)
             named = {f"generator_{n}": v for n, v in gen_losses.items()}
@@ -291,9 +306,10 @@ class TrainStep:
         # the config, so every rank sends the same vector)
         names = list(metrics)
         values = torch.stack([metrics[n].float() for n in names])
-        mesh.all_reduce_grads(gen_grads + disc_grads + [values])
-        return (gen_grads, disc_grads,
-                dict(zip(names, values.tolist())),
+        with annotate("train.reduce_fetch"):
+            mesh.all_reduce_grads(gen_grads + disc_grads + [values])
+            fetched = dict(zip(names, values.tolist()))
+        return (gen_grads, disc_grads, fetched,
                 ([tuple(s) for s in bn_stats], [u / k for u in u_sum]))
 
     @staticmethod
@@ -304,17 +320,20 @@ class TrainStep:
         opt.zero_grad(set_to_none=True)
 
     def __call__(self, lr, hr) -> tp.Dict[str, float]:
-        gen_grads, disc_grads, metrics, stats = self.grads(lr, hr)
-        self.apply(gen_grads, disc_grads, stats)
-        return metrics
+        with annotate("train.step"):
+            gen_grads, disc_grads, metrics, stats = self.grads(lr, hr)
+            self.apply(gen_grads, disc_grads, stats)
+            return metrics
 
     def apply(self, gen_grads, disc_grads, stats) -> None:
         """The update of ``grads()``' results: both Adam steps, the
         BatchNorm running statistics and the stored u."""
         bn_stats, us = stats
-        self._update(self.gen_opt, self.gen_params, gen_grads)
+        with annotate("train.gen_adam"):
+            self._update(self.gen_opt, self.gen_params, gen_grads)
         if self.disc_opt is not None:
-            self._update(self.disc_opt, self.disc_params, disc_grads)
+            with annotate("train.disc_adam"):
+                self._update(self.disc_opt, self.disc_params, disc_grads)
         for bn, (mean, var) in zip(self.batchnorms, bn_stats):
             bn.update_running_stats(mean, var)
         for m, u in zip(self.spectral, us):

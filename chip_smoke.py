@@ -633,15 +633,24 @@ def device_profile(fn, what, smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
+
+    def device_work(e):
+        # the profiler draws each record_function range that launched device
+        # work (torch's Optimizer.step) on the device's timeline as a user
+        # annotation, from its first launch to its last: no work of the
+        # device
+        return (e.device_type == cuda
+                and not getattr(e, "is_user_annotation", False))
+
     # busy = the union of the device activities' intervals: kernels on
     # several streams (cuDNN's bidirectional LSTM) overlap, so their sum
     # can exceed the wall time
     busy_us, end_us = 0.0, float("-inf")
     for start, end in sorted((e.time_range.start, e.time_range.end)
-                             for e in prof.events() if e.device_type == cuda):
+                             for e in prof.events() if device_work(e)):
         busy_us += max(0.0, end - max(start, end_us))
         end_us = max(end_us, end)
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    kernels = [e for e in prof.key_averages() if device_work(e)]
     summed_us = sum(e.self_device_time_total for e in kernels)
     idle = 1 - busy_us / 1e6 / wall
     log(f"profiled {what}: wall {wall * 1e3:.1f} ms, device busy "
