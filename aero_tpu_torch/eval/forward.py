@@ -12,11 +12,24 @@ split over generator replicas on several devices, and optionally padding
 the ragged tail to a whole chunk.
 ``make_spec_fns`` gives the spectra that the evaluation's PNGs plot.
 
+On a CUDA device a small forward replays from a CUDA graph: launching its
+~1,000 operations one by one takes the host longer than the device takes
+to run them. Each shape (rows, padded samples) up to ``GRAPH_MAX_SAMPLES``
+runs eagerly the first time (the warm-up: cuDNN and cuFFT plans, lazy
+initialisation), is captured the second time and replays from then on;
+larger forwards stay eager, since their graphs would pin gigabytes. The
+graph holds the generator's ``spectra`` (for Aero everything but the
+synthesis iSTFT, which runs eagerly after the replay); a generator without
+it (Seanet) runs eagerly. A replay runs none of the kernel wrappers'
+Python: their launch counters count the eager forwards and the captures.
+
 Under a profiler, a file is the span ``serve.file`` and its steps are
 ``serve.split`` (full chunks stacked into the batch axis), ``serve.upload``
 (the bucket pad and the host-to-device copy), ``serve.forward`` (the
-generator's launches), ``serve.download`` (the wait and the device-to-host
-copy) and ``serve.join`` (the outputs put back in order).
+generator's launches, or a graph's replay), ``serve.download`` (the wait
+and the device-to-host copy) and ``serve.join`` (the outputs put back in
+order). A replay opens no ``aero.*`` span: its operations go to
+``serve.forward`` by the graph's launch.
 """
 
 from __future__ import annotations
@@ -26,8 +39,21 @@ import typing as tp
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
+from aero_tpu_torch.ops import attention, ftb, lstm
 from aero_tpu_torch.utils.profiling import annotate
+
+# The largest forward, rows x padded input samples, that replays from a CUDA
+# graph: a cap on the memory that graphs pin. Both configurations hop 16
+# input samples, so samples stand for frames. A replay saves the host's
+# launches of a forward, 20-31 ms whatever its shape; the device's own time
+# hides them from about 1 x 30000 samples up, and above that a replay still
+# gains 1-2 ms. One graph alone holds 1.0 GiB at 1 x 40000, 2.1 GiB at
+# 3 x 40000, 2.7 GiB at 4 x 40000 and 10.8 GiB at 16 x 40000 (bf16, on an
+# H100). The cap is three 10 s chunks of speech, the largest forward of a
+# single file: the bulk forwards (16 x 40000, 16 x 110250) stay eager.
+GRAPH_MAX_SAMPLES = 3 * 40_000
 
 
 def bucket_target(n: int, bucket: int) -> int:
@@ -50,6 +76,60 @@ def _pad_reflect_tail(x: np.ndarray, target: int) -> np.ndarray:
     return out
 
 
+class CudaGraphs:
+    """Captures forwards as CUDA graphs on ``device``: all in one memory
+    pool, each captured on a side stream and replayed on the caller's
+    stream. Graphs that share the pool must replay one at a time, in
+    stream order: each one's scratch memory is the others' too."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pool = self.stream = None
+
+    def clear(self) -> None:
+        """Start a new pool at the next capture (after the graphs that
+        used this one are dropped, so that its memory can go)."""
+        self.pool = None
+
+    def capture(self, fn, x: torch.Tensor) -> "CudaGraph":
+        with torch.cuda.device(self.device):
+            if self.stream is None:
+                # one stream for good: the libraries keep their workspaces
+                # per stream, in the pool of the capture that first used it
+                self.stream = torch.cuda.Stream()
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            return CudaGraph(fn, x, self.pool, self.stream)
+
+
+class CudaGraph:
+    """``fn`` on a static copy of ``x``, captured: ``replay(x)`` copies
+    ``x`` in and returns the static output, which the next replay of any
+    graph of the pool may overwrite."""
+
+    def __init__(self, fn, x: torch.Tensor, pool, stream):
+        self.input = x.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: an unsafe call from another thread (a loader's
+        # pinned memory) does not spoil this capture
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.output = fn(self.input)
+
+    def replay(self, x: torch.Tensor) -> torch.Tensor:
+        self.input.copy_(x)
+        self.graph.replay()
+        return self.output
+
+
+def _watched() -> bool:
+    """Whether Python watches the forward's operators, which a replay runs
+    without: an ``attention.recording`` block, or a dispatch mode (a FLOP
+    count, ``utils.flops.count_flops``)."""
+    return attention.recording_active() or \
+        _get_current_dispatch_mode() is not None
+
+
 class EvalForward:
     """Generator forward of host arrays on ``device``, padded to buckets of
     ``bucket_s`` seconds.
@@ -60,11 +140,18 @@ class EvalForward:
 
     Counters, on the class, over every instance: ``samples``, the input
     samples forwarded (rows × padded length), and ``padded_samples``, the
-    part of them that the bucket pad added.
+    part of them that the bucket pad added; each generator forward in one
+    of ``eager_forwards``, ``graph_captures`` (a capture and its first
+    replay) and ``graph_replays``. The kernel wrappers count the launches
+    of the eager forwards and the captures; a replay runs none of their
+    Python and adds nothing to them.
     """
 
     samples = 0
     padded_samples = 0
+    graph_captures = 0
+    graph_replays = 0
+    eager_forwards = 0
 
     def __init__(self, gen: torch.nn.Module, scale: float, lr_sr: int,
                  device, bucket_s: float = 1.0, return_spec: bool = False):
@@ -72,12 +159,23 @@ class EvalForward:
         self.bucket = int(bucket_s * lr_sr)
         self.return_spec = return_spec
         self.device = torch.device(device)
+        # the capture backend; None: every forward runs eagerly
+        self.graphs = (CudaGraphs(self.device)
+                       if self.device.type == "cuda" else None)
         self.update_state(gen)
 
     def update_state(self, gen: torch.nn.Module) -> None:
         """Run later calls through ``gen`` (the Solver's generator, or a
-        copy that holds its best state)."""
+        copy that holds its best state); drops every graph. Weights changed
+        in place (an optimizer's step) need no call: a replay reads them."""
         self.gen = gen
+        # per key (``_graph_key``): None after its eager first forward, then
+        # its graph
+        self._graphs: tp.Dict[tuple, tp.Any] = {}
+        # the pool's first graph (``_capture``), never replayed
+        self._floor = None
+        if self.graphs is not None:
+            self.graphs.clear()
 
     def _input(self, lr: np.ndarray) -> torch.Tensor:
         """``lr`` padded to its bucket, on the device."""
@@ -95,8 +193,64 @@ class EvalForward:
         launched on the device and not awaited."""
         with annotate("serve.forward"):
             with torch.inference_mode():
-                out = self.gen(x).float()
+                out = self._forward(x).float()
             return out[..., :int(t * self.scale)]
+
+    def _graph_key(self, x: torch.Tensor, return_spec: bool):
+        """The key of ``x``'s graph: all that ``gen(x)`` reads at call time
+        besides the weights. None where it runs eagerly: without a capture
+        backend, for ``return_spec``, above ``GRAPH_MAX_SAMPLES``, for an
+        input not [B, C, T] (``spectra`` takes no other), for a generator
+        without ``spectra`` or in train mode (BatchNorm keeps its batch's
+        statistics), and while Python watches its operators
+        (``_watched``)."""
+        gen = self.gen
+        if (self.graphs is None or return_spec or x.dim() != 3
+                or x.numel() > GRAPH_MAX_SAMPLES
+                or not hasattr(gen, "spectra") or gen.training or _watched()):
+            return None
+        return (tuple(x.shape), x.dtype, gen, gen.compute_dtype,
+                lstm.enabled(), ftb.enabled(), attention.band_from_env())
+
+    def _capture(self, x: torch.Tensor):
+        """The graph of ``gen.spectra`` on ``x``'s shape. A new pool's first
+        graph, its floor, is the largest input the rule graphs, one row of
+        ``GRAPH_MAX_SAMPLES`` samples, zeros, warmed up eagerly, kept and
+        never replayed: later graphs mostly fit in the memory it freed,
+        whatever the order of the shapes. Smallest first, as a warm-up or
+        the Solver's files may come, each capture would need blocks larger
+        than any freed before, and the pool would keep them all. (On an
+        H100, bf16: the floor 2.1 GiB, the 12 shapes of a speech files
+        cell 2.8 GiB with it and 4.1 GiB without.)"""
+        def fn(x):
+            return self.gen.spectra(x)[0]
+
+        if self._floor is None:
+            largest = x.new_zeros(1, x.shape[1],
+                                  GRAPH_MAX_SAMPLES // x.shape[1])
+            fn(largest)
+            EvalForward.eager_forwards += 1
+            self._floor = self.graphs.capture(fn, largest)
+            EvalForward.graph_captures += 1
+        EvalForward.graph_captures += 1
+        return self.graphs.capture(fn, x)
+
+    def _forward(self, x: torch.Tensor, return_spec: bool = False):
+        """``gen(x)`` (``gen(x, return_spec=True)``), its spectra replayed
+        from a graph where ``_graph_key`` gives a key seen before."""
+        key = self._graph_key(x, return_spec)
+        if key is None or key not in self._graphs:
+            if key is not None:  # warm up eagerly, capture next time
+                self._graphs[key] = None
+            EvalForward.eager_forwards += 1
+            return self.gen(x, return_spec=True) if return_spec \
+                else self.gen(x)
+        graph = self._graphs[key]
+        if graph is None:
+            graph = self._graphs[key] = self._capture(x)
+        else:
+            EvalForward.graph_replays += 1
+        return self.gen.synthesis(graph.replay(x), x.shape[-1])
 
     def forward_tensor(self, lr: np.ndarray) -> torch.Tensor:
         """The prediction [B, 1, T * scale] as a float32 tensor on the
@@ -112,7 +266,8 @@ class EvalForward:
                 return pr.cpu().numpy()
         target = int(lr.shape[-1] * self.scale)
         with torch.inference_mode():
-            pr, pr_spec, lr_spec = self.gen(self._input(lr), return_spec=True)
+            pr, pr_spec, lr_spec = self._forward(self._input(lr),
+                                                 return_spec=True)
             return (pr.float().cpu().numpy()[..., :target],
                     pr_spec.cpu().numpy(), lr_spec.cpu().numpy())
 

@@ -257,7 +257,18 @@ class Aero(nn.Module):
         (complex64) and the input's [B, C_in, F, T], as (out, x_spec, z)."""
         if mix.dim() == 2:
             mix = mix[:, None, :]
-        length = mix.shape[-1]
+        x_spec, z = self.spectra(mix)
+        out = self.synthesis(x_spec, mix.shape[-1])
+        if return_spec:
+            return out, x_spec, z
+        return out
+
+    def spectra(self, mix):
+        """The forward of mix [B, C_in, T] up to the synthesis: (the output
+        spectrum [B, C_out, F, T] complex64, the input's [B, C_in, F, T]).
+        It reads nothing back to the host, so a CUDA graph can hold it; the
+        synthesis cannot, since ``torch.istft`` checks its window envelope
+        on the host."""
         self._log("aero in shape", mix)
         z = self._spec(mix)                                   # [B, C, F, T]
         b, c, f, t = z.shape
@@ -290,11 +301,15 @@ class Aero(nn.Module):
         x = x.reshape(b, self.out_channels, 2, f, t).permute(0, 1, 3, 4, 2)
         x_spec = torch.view_as_complex(x.contiguous())
         self._log("x_spec_complex shape", x_spec)
+        return x_spec, z
+
+    def synthesis(self, x_spec, length: int):
+        """The signal of the output spectrum ``x_spec``: the synthesis iSTFT,
+        cut to ``length`` input samples' ``int(length * scale)``; a new
+        tensor, whatever memory ``x_spec`` lies in."""
         out = self._ispec(x_spec)
         self._log("aero out shape", out)
         out = out[..., :int(length * self.scale)]
         self._log("aero out - trimmed shape", out)
-        if return_spec:
-            return out, x_spec, z
         return out
 

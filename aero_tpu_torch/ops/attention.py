@@ -317,6 +317,11 @@ def recording():
         _RECORDINGS.remove(calls)
 
 
+def recording_active() -> bool:
+    """Whether a ``recording`` block is open."""
+    return bool(_RECORDINGS)
+
+
 def _local_attention(q, k, v, w, band):
     if _build.on_cpu(q, k, v, w):
         if band > 0:

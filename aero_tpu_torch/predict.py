@@ -93,7 +93,9 @@ def predict_file(gen: torch.nn.Module, filename: str, output_dir: str,
     generator with ``spec_upsample`` false keeps that length). With two or
     more ``devices`` (``device`` among them or not) a replica of ``gen`` on
     each serves its part of the batch of full chunks. One untimed run first
-    warms both shapes (the batched chunks and the ragged tail)."""
+    warms both shapes (the batched chunks and the ragged tail); the timed
+    run captures the CUDA graph of a shape that replays from one
+    (``EvalForward``), and so times the capture."""
     device = torch.device(device)
     lr_sig, sr = audio_io.load(filename)
     if sr != lr_sr:

@@ -186,7 +186,7 @@ def table(spans: dict) -> dict:
 def counters() -> tp.Dict[str, int]:
     """A snapshot of every counter of the program: {"<owner>.<counter>":
     count}, the kernel wrappers' launch and call counts and the serving
-    path's samples."""
+    path's samples and forwards."""
     from aero_tpu_torch.eval.forward import EvalForward
     from aero_tpu_torch.ops.attention import local_attention, \
         periodic_attention
@@ -200,7 +200,9 @@ def counters() -> tp.Dict[str, int]:
         "periodic_attention": (periodic_attention, ("calls",)),
         "lstm_recurrence": (lstm_recurrence, ("launches", "mma_launches")),
         "ftb_tail": (ftb_tail, ("launches", "mma_launches")),
-        "EvalForward": (EvalForward, ("samples", "padded_samples")),
+        "EvalForward": (EvalForward, (
+            "samples", "padded_samples", "graph_captures", "graph_replays",
+            "eager_forwards")),
     }
     return {f"{name}.{key}": int(getattr(owner, key))
             for name, (owner, keys) in owners.items() for key in keys}

@@ -184,7 +184,20 @@ prints its time:
    bfloat16 (B 8, 16 files): each run one finite epoch with 4 forward and 8
    backward attention launches per microbatch (on the tensor cores in
    bfloat16, on the SIMT kernels in float32); each run's step times, peak
-   memory, ViSQOL average and the files the scorer failed on, printed.
+   memory, ViSQOL average and the files the scorer failed on, printed;
+15. ``EvalForward``'s CUDA graphs (``cuda_graphs``), the canonical bf16
+   generator at the speech files cell's 12 forwards (1 x 4000 .. 1 x 40000,
+   2 and 3 x 40000) and at 4, 6, 8, 12 and 16 x 40000, under cuDNN's
+   deterministic algorithms: the first call eager, the second a capture
+   (the first capture after the pool's floor), the third a replay up to
+   ``GRAPH_MAX_SAMPLES`` (three eager calls above it, and music's
+   16 x 110250 eager by the rule); every output within GRAPH_GAP relative
+   L2 of an eager forward's; 10 replays move no kernel wrapper's counter;
+   a profiled replay runs the eager forward's 4 attention kernels on the
+   device; the graphs' pool within POOL_GROWTH of its first capture's.
+   Then per shape, in the default algorithms: host ms of the eager
+   launches and of the eager forward, the graph's device ms, the replayed
+   forward's host ms and the pool one graph alone holds.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and the result JSON.
@@ -579,7 +592,9 @@ def plain_swaps(attention, lstm, ftb):
 
 def forward_with(swaps, fn, *args):
     """``fn(*args)`` with each (module, name) of ``swaps`` set to its
-    value: the wrappers' plain versions."""
+    value: the wrappers' plain versions. ``fn`` must run its forward
+    eagerly: a CUDA graph replays what it captured, whatever the names
+    hold now (``eager``)."""
     kept = {key: getattr(*key) for key in swaps}
     for (module, name), value in swaps.items():
         setattr(module, name, value)
@@ -802,13 +817,21 @@ def checked_forward(fwd, x, counted, want):
     return y, launches
 
 
+def eager(fwd, lr):
+    """What ``fwd(lr)`` gives, through its generator's eager forward: the
+    same bucket pad and trim, never a CUDA graph."""
+    with torch.inference_mode():
+        y = fwd.gen(fwd._input(lr)).float()
+        return y[..., :int(lr.shape[-1] * fwd.scale)].cpu().numpy()
+
+
 def forward_gaps(fwd, fwd32, chunk, plain, what):
     """Whole forward of one chunk, kernels against their plain versions
-    (``plain``, as ``forward_with`` takes them), in relative L2, bf16 and
-    f32; raises beyond GAP_BF16 or GAP_F32."""
-    gap_bf16 = rel_l2(fwd(chunk), forward_with(plain, fwd, chunk))
+    (``plain``, as ``forward_with`` takes them, run by ``eager``), in
+    relative L2, bf16 and f32; raises beyond GAP_BF16 or GAP_F32."""
+    gap_bf16 = rel_l2(fwd(chunk), forward_with(plain, eager, fwd, chunk))
     y32 = fwd32(chunk)
-    gap_f32 = rel_l2(y32, forward_with(plain, fwd32, chunk))
+    gap_f32 = rel_l2(y32, forward_with(plain, eager, fwd32, chunk))
     gap_dtype = rel_l2(fwd(chunk), y32)
     log(f"one chunk, {what} path, kernels vs plain versions, relative L2: "
         f"bf16 {gap_bf16:.3e} (< {GAP_BF16:g}), f32 {gap_f32:.3e} (< "
@@ -1087,6 +1110,22 @@ def zero_attention_counts(attention):
         setattr(attention.local_attention, name, 0)
 
 
+def forward_kinds():
+    """[eager forwards, graph captures, graph replays] of ``EvalForward``
+    so far."""
+    from aero_tpu_torch.eval.forward import EvalForward
+
+    return [EvalForward.eager_forwards, EvalForward.graph_captures,
+            EvalForward.graph_replays]
+
+
+def graph_pool_bytes():
+    """The bytes the caching allocator holds in CUDA graphs' private
+    pools: its segments outside the default pool."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
 def recorder(attention, calls, sync=False, tag=None):
     """``make`` for ``wrapped``: each call of the wrapped function appends
     (wall seconds, its attention kernel launches, ``tag(args)`` taken at the
@@ -1204,6 +1243,7 @@ def solver(attention, smi):
     from aero_tpu_torch import predict
     from aero_tpu_torch import test as test_cli
     from aero_tpu_torch.data.prep import make_dummy_dataset
+    from aero_tpu_torch.eval.forward import EvalForward
     from aero_tpu_torch.models.aero import Aero
     from aero_tpu_torch.train import __main__ as train_cli
     from aero_tpu_torch.train import checkpoint
@@ -1211,8 +1251,8 @@ def solver(attention, smi):
     from aero_tpu_torch.train.solver import Solver
     from aero_tpu_torch.train.train_step import TrainStep
 
-    steps, forwards, epochs, valids, losses, scores, evals, saves, loads = (
-        [] for _ in range(9))
+    (steps, forwards, serves, epochs, valids, losses, scores, evals, saves,
+     loads) = ([] for _ in range(10))
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as st:
         os.chdir(tmp)
@@ -1232,6 +1272,25 @@ def solver(attention, smi):
                 (checkpoint, "load_package", loads, True, None)):
             st.enter_context(wrapped(owner, name, recorder(
                 attention, calls, sync, tag)))
+
+        def serve_recorder(fn):
+            """Each eval-mode forward (``EvalForward._forward``, a CUDA
+            graph's replay included): its attention launches, its
+            [eager, captured, replayed] forwards, and after it the bytes
+            of the graphs' pools and all the allocator reserves."""
+            @functools.wraps(fn)
+            def call(*args, **kwargs):
+                launched, kinds = attention_counts(attention), forward_kinds()
+                out = fn(*args, **kwargs)
+                after = attention_counts(attention)
+                serves.append((
+                    {k: after[k] - launched[k] for k in after},
+                    [a - b for a, b in zip(forward_kinds(), kinds)],
+                    graph_pool_bytes(), torch.cuda.memory_reserved()))
+                return out
+            return call
+
+        st.enter_context(wrapped(EvalForward, "_forward", serve_recorder))
         cli = ["experiment=aero_4-16_512_64", "dset=4-16",
                "precision=bfloat16", "device=cuda", "visqol=false",
                f"dset.train={tmp}/egs/tr", f"dset.valid={tmp}/egs/val",
@@ -1281,10 +1340,9 @@ def solver(attention, smi):
                                                adam_restored[0])
         del adam_saved[:], adam_restored[:]
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        n_valid_fwd = sum(not c[2] for c in forwards)
-        n_train_cli_fwd = len(forwards)
+        n_valid_fwd = len(serves)
         results = test_cli.main(cli)
-        n_test_fwd = len(forwards) - n_train_cli_fwd
+        n_test_fwd = len(serves) - n_valid_fwd
         wav = os.path.join(tmp, "chirp12.wav")
         n_in = write_test_wav(wav, 12.3)
         out = predict.main(cli + [f"+filename={wav}",
@@ -1296,7 +1354,7 @@ def solver(attention, smi):
         best = os.path.exists(os.path.join(run_dir, "best.atpu"))
 
     train_fwd = [c for c in forwards if c[2]]
-    eval_fwd = [c for c in forwards if not c[2]]
+    eval_fwd = serves
     step_s = [c[0] for c in steps]
     log(f"solver: train CLI 2 epochs {t_train:.1f} s, {n_first} steps of "
         f"B=16 x 2 s bf16; epochs {first_epochs} then resumed {resumed}; "
@@ -1317,8 +1375,12 @@ def solver(attention, smi):
         f"{statistics.median(c[0] for c in losses) * 1e3:.1f} ms a file "
         f"({len(losses)} files); "
         f"eval-mode forwards: train CLI {n_valid_fwd}, test CLI "
-        f"{n_test_fwd}, all {len(eval_fwd)}; train forwards "
-        f"{len(train_fwd)} [{smi}]")
+        f"{n_test_fwd}, all {len(eval_fwd)} (eager, captured, replayed "
+        f"{[sum(c[1][i] for c in eval_fwd) for i in range(3)]}); graph "
+        f"pools up to {max(c[2] for c in eval_fwd) / 2 ** 20:.1f} MiB, "
+        f"reserved up to {max(c[3] for c in eval_fwd) / 2 ** 30:.2f} GiB "
+        f"after an eval-mode forward; train forwards {len(train_fwd)} "
+        f"[{smi}]")
     log(f"solver: checkpoint save {', '.join(f'{c[0]:.2f}' for c in saves)} "
         f"s, load {', '.join(f'{c[0]:.2f}' for c in loads)} s; resumed Adam "
         f"state of {adam_n} parameters equal to the saved one, fused update "
@@ -1339,14 +1401,16 @@ def solver(attention, smi):
     if bad or len(steps) != 15:
         raise AssertionError(f"train steps: {len(steps)} (want 15), launches "
                              f"per step not {want_step}: {bad[:3]}")
-    want_fwd = {"forward": 4, "forward_mma": 4, "backward": 0,
-                "backward_mma": 0}
-    bad = [c[1] for c in eval_fwd if c[1] != want_fwd]
+    # 4 launches, all mma, for each eager forward and each capture (a
+    # pool's first capture also runs its floor's), none for a replay
+    bad = [c for c in eval_fwd if c[0] != dict(
+        forward=4 * (c[1][0] + c[1][1]), forward_mma=4 * (c[1][0] + c[1][1]),
+        backward=0, backward_mma=0)]
     if bad or n_valid_fwd != 3 * SOLVER_FILES or n_test_fwd != SOLVER_FILES:
         raise AssertionError(f"eval-mode forwards: train CLI {n_valid_fwd} "
                              f"(want {3 * SOLVER_FILES}), test CLI "
                              f"{n_test_fwd} (want {SOLVER_FILES}); launches "
-                             f"not {want_fwd}: {bad[:3]}")
+                             f"not 4 an eager forward or capture: {bad[:3]}")
     numbers = [v for h in history for v in h.values()
                if isinstance(v, (int, float))]
     if not (len(history) == len(on_disk) == 3 and all(
@@ -1764,8 +1828,11 @@ def predict_upsample(attention, smi):
     ``experiment.aero.spec_upsample=false`` on the 35 s file from a
     reference .th of the seeded canonical generator: the input resampled
     to 16 kHz, the forward at scale 1, so the output has the resampled
-    input's length; 2 runs (warm-up, timed) of 3 batched chunks and the
-    tail, 4 forward launches each, all on the tensor cores."""
+    input's length; 2 runs (the warm-up, and the timed run, which
+    captures the tail's CUDA graph after the pool's floor) of 3 batched
+    chunks and the tail: 4 forward launches, all on the tensor cores, for
+    each eager forward and each capture (``forward_kinds``), none for a
+    replay."""
     from aero_tpu_torch import predict
     from aero_tpu_torch.data.resample import resample_np
     from aero_tpu_torch.models.factory import (
@@ -1780,18 +1847,23 @@ def predict_upsample(attention, smi):
         wav = os.path.join(tmp, "chirp35.wav")
         n_in = write_test_wav(wav, 35)
         zero_attention_counts(attention)
+        kinds = forward_kinds()
         out = predict.main(CANONICAL + [
             f"+filename={wav}", f"+output={tmp}/out",
             f"checkpoint_file={ckpt}", "precision=bfloat16", "device=cuda",
             "experiment.upsample=true", "experiment.aero.spec_upsample=false"])
         launches = attention_counts(attention)
+        kinds = [a - b for a, b in zip(forward_kinds(), kinds)]
     n_hr = resample_np(np.zeros(n_in, np.float32), LR_SR, HR_SR).shape[-1]
+    want = 4 * (kinds[0] + kinds[1])
     log(f"predict CLI, upsample=true: 35 s file, {n_in} samples resampled to "
         f"{n_hr}, out {out['out_samples']} samples, realtime factor "
-        f"{out['realtime_factor']:.1f}x; attention launches {launches} "
-        f"[{smi}]")
+        f"{out['realtime_factor']:.1f}x (the timed run captures); forwards "
+        f"eager, captured, replayed {kinds}; attention launches {launches} "
+        f"(want {want}) [{smi}]")
     if not (out["in_samples"] == out["out_samples"] == n_hr
-            and launches["forward"] == launches["forward_mma"] == 16):
+            and launches["forward"] == launches["forward_mma"] == want
+            and kinds[2] == 0):
         raise AssertionError("predict with upsample=true")
     return out
 
@@ -2820,6 +2892,257 @@ def repro_and_tools(attention, smi):
     return launches, probe
 
 
+# the forwards (rows, padded input samples) of the benchmark's speech files
+# cell: one row of 1-10 s, then two and three full 10 s chunks; then more
+# full chunks, up to the bulk cells' 16, for the rule's cut-off
+FILES_SHAPES = [(1, n) for n in range(LR_SR, SECONDS * LR_SR + 1, LR_SR)] + [
+    (2, SECONDS * LR_SR), (3, SECONDS * LR_SR)]
+RULE_SHAPES = [(r, SECONDS * LR_SR) for r in (4, 6, 8, 12, BATCH)]
+# every call against a warm eager forward, relative L2 of the outputs, both
+# under cuDNN's deterministic algorithms (its benchmark off), where two eager
+# forwards agree to the bit
+GRAPH_GAP = 1e-6
+GRAPH_REPEATS = 10
+# the graphs of the files cell's 12 shapes against the pool's first
+# capture (its floor, one row of GRAPH_MAX_SAMPLES, and 1 x 4000): bytes
+# the pool may hold (1.35 x on an H100: captured smallest first without
+# the floor, the 12 graphs held 2.0 x the floor's memory)
+POOL_GROWTH = 1.5
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, its benchmark off; restored
+    after."""
+    cudnn = torch.backends.cudnn
+    old = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = old
+
+
+def device_kernels(fn):
+    """The names of the device operations of one call of ``fn``, counted
+    (torch.profiler: CUPTI lists a CUDA graph's kernel nodes one by
+    one)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return Counter(e.name for e in prof.events() if e.device_type == cuda
+                   and not getattr(e, "is_user_annotation", False))
+
+
+def cuda_graphs(smi):
+    """Phase 15: ``EvalForward``'s CUDA graphs with the canonical bf16
+    generator at the files cell's 12 shapes and at 4 to 16 full chunks
+    (music's 16 x 110250 by the rule alone). Under cuDNN's deterministic
+    algorithms, per shape: the kinds of three calls (eager, capture, replay
+    up to ``GRAPH_MAX_SAMPLES``, the first capture after the pool's
+    floor); each call's output against a warm eager forward, within
+    GRAPH_GAP; 10 more calls: replays move none of the kernel wrappers'
+    counters, eager calls as many as 10 eager forwards; one profiled
+    replay against one profiled eager forward: the same 4 attention kernels
+    on the device, and the other kernels' counts; the graphs' pool after the
+    first capture and after the last. Then, in the default algorithms, per
+    shape alone in a fresh pool: host ms of the eager launches
+    (``gen.spectra``) and of the eager forward (what ``serve.forward``
+    holds: the iSTFT's host read waits for the device), the graph's device
+    ms, the replayed forward's host ms and the pool one graph holds.
+    Returns the rows."""
+    from aero_tpu_torch.eval import forward as fwd_mod
+    from aero_tpu_torch.eval.forward import CudaGraphs, EvalForward
+    from aero_tpu_torch.models.factory import (
+        CANONICAL_AERO_4_16, build_generator)
+    from aero_tpu_torch.utils import profiling
+
+    gen = build_generator(CANONICAL_AERO_4_16, "bfloat16", "cuda", seed=0)
+    fwd = EvalForward(gen, scale=HR_SR / LR_SR, lr_sr=LR_SR, device="cuda")
+    rng = np.random.default_rng(15)
+    attn_kernel = "local_attention_fwd_mma_kernel"
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+
+    def moved(before, after):
+        return {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+
+    def host_ms(fn, n=5):  # median host-to-host ms, the device idle first
+        runs = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(runs)
+
+    def launch_ms(fn, n=5):  # median host ms of the launches alone
+        runs = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            runs.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        return statistics.median(runs)
+
+    def device_ms(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    def signal(rows, n):
+        return torch.from_numpy((0.1 * rng.standard_normal(
+            (rows, 1, n))).astype(np.float32)).cuda()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = graph_pool_bytes()
+    rows_out, faults, first_pool = [], [], None
+    log(f"cuda graphs, canonical bf16, GRAPH_MAX_SAMPLES "
+        f"{fwd_mod.GRAPH_MAX_SAMPLES}, cuDNN deterministic [{smi}]:")
+    log(f"  rows x samples | [eager, captured, replayed] of 3 calls | their "
+        f"rel L2 to an eager forward, beside {GRAPH_GAP:g} (two eager "
+        f"forwards') | the 3 calls' ms | {GRAPH_REPEATS} calls: wrapper "
+        f"counters moved, replays | {attn_kernel} on the device, a replay "
+        f"and an eager forward | all device operations of the two, and how "
+        f"many each has that the other lacks | MiB of the graphs' pool "
+        f"after")
+    with deterministic_cudnn():
+        for rows, n in FILES_SHAPES + RULE_SHAPES:
+            x = signal(rows, n)
+            graphed = rows * n <= fwd_mod.GRAPH_MAX_SAMPLES
+            with torch.inference_mode():
+                ref, again = (gen(x).float().cpu().numpy() for _ in range(2))
+            spread = rel_l2(again, ref)
+            want_calls = ([1, 1, 1] if graphed else [3, 0, 0])
+            if graphed and fwd._floor is None:  # and the pool's floor
+                want_calls = [2, 2, 1]
+            kinds = forward_kinds()
+            outs, call_ms = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(fwd._run(x, n).cpu().numpy())
+                call_ms.append(1e3 * (time.perf_counter() - t0))
+            calls = [a - b for a, b in zip(forward_kinds(), kinds)]
+            pool = graph_pool_bytes() - base
+            if graphed and first_pool is None:
+                first_pool = pool
+            gap = max(rel_l2(o, ref) for o in outs)
+            before = profiling.counters()
+            for _ in range(GRAPH_REPEATS):
+                fwd._run(x, n)
+            mid = profiling.counters()
+            with torch.inference_mode():
+                for _ in range(GRAPH_REPEATS):
+                    gen(x)
+            via_fwd = moved(before, mid)
+            replays = via_fwd.get("EvalForward.graph_replays", 0)
+            via_fwd = {k: v for k, v in via_fwd.items()
+                       if not k.startswith("EvalForward.")}
+            eager = moved(mid, profiling.counters())
+            kinds = forward_kinds()
+            k_call = device_kernels(lambda: fwd._run(x, n))
+            profiled = [a - b for a, b in zip(forward_kinds(), kinds)]
+            with torch.inference_mode():
+                k_eager = device_kernels(lambda: gen(x))
+            attn = (sum(c for k, c in k_call.items() if attn_kernel in k),
+                    sum(c for k, c in k_eager.items() if attn_kernel in k))
+            # names cut short; the profiler may also list a few operations
+            # of the work before it, on either side
+            extra, missing = ({k[:60]: c for k, c in d.items()}
+                              for d in (k_call - k_eager, k_eager - k_call))
+            row = {"rows": rows, "samples": n, "calls": calls, "gap": gap,
+                   "eager_spread": spread, "call_ms": call_ms,
+                   "counters": via_fwd, "replays": replays,
+                   "counters_eager": eager, "attention_kernels": attn,
+                   "kernels": [sum(k_call.values()), sum(k_eager.values())],
+                   "kernels_extra": extra, "kernels_missing": missing,
+                   "pool_after": pool}
+            rows_out.append(row)
+            log(f"  {rows:2d} x {n:6d} | {calls} | {gap:.3e} ({spread:.3e}) "
+                f"| {', '.join(f'{t:.1f}' for t in call_ms)} | {via_fwd}, "
+                f"{replays} | {attn[0]}, {attn[1]} | {row['kernels']}, "
+                f"{sum(extra.values())} and {sum(missing.values())} apart | "
+                f"{pool / 2 ** 20:.1f}")
+            want_counters = {} if graphed else eager
+            want_replays = GRAPH_REPEATS if graphed else 0
+            if (calls != want_calls or not gap <= GRAPH_GAP
+                    or via_fwd != want_counters or replays != want_replays
+                    or profiled != ([0, 0, 1] if graphed else [1, 0, 0])
+                    or attn != (4, 4)):
+                faults.append(
+                    f"{rows} x {n}: calls {calls} (want {want_calls}), gap "
+                    f"{gap:.3e}, counters {via_fwd} (want {want_counters}), "
+                    f"replays {replays} (want {want_replays}), profiled "
+                    f"call {profiled}, attention kernels {attn}")
+            del x
+        torch.cuda.synchronize()
+        held = graph_pool_bytes() - base
+    music = fwd._graph_key(torch.empty(BATCH, 1, 110250, device="cuda"),
+                           False)
+    n_graphs = sum(r["calls"][1] for r in rows_out)
+    log(f"cuda graphs: {n_graphs} captures by EvalForward (the floor "
+        f"included); their pool {first_pool / 2 ** 20:.1f} MiB after the "
+        f"first (the floor and 1 x {LR_SR}), {held / 2 ** 20:.1f} MiB after "
+        f"the last ({100 * held / card_bytes:.2f}% of the card; want at "
+        f"most {POOL_GROWTH:g} x the first); music bulk 16 x 110250 "
+        f"{'graphed' if music else 'eager'} [{smi}]")
+    if music is not None:
+        faults.append("the music bulk forward would replay")
+    if not held <= POOL_GROWTH * first_pool:
+        faults.append(f"the pool grew from {first_pool} to {held} bytes")
+    del fwd
+    torch.cuda.empty_cache()
+    # in the default algorithms, every shape captured for the measurement,
+    # one graph at a time in a pool of its own
+    measure = CudaGraphs("cuda")
+    log("  rows x samples | ms: eager launches, eager forward, graph device, "
+        "replayed forward (the iSTFT eager after it) | MiB of its pool")
+    for row in rows_out:
+        rows, n = row["rows"], row["samples"]
+        x = signal(rows, n)
+        with torch.inference_mode():
+            row["launch_ms"] = launch_ms(lambda: gen.spectra(x))
+            row["eager_ms"] = host_ms(lambda: gen(x))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = graph_pool_bytes()
+            graph = measure.capture(lambda x: gen.spectra(x)[0], x)
+            row["pool_bytes"] = graph_pool_bytes() - before
+            row["device_ms"] = device_ms(lambda: graph.replay(x))
+            row["replay_ms"] = host_ms(
+                lambda: gen.synthesis(graph.replay(x), n))
+        del graph, x
+        measure.clear()
+        torch.cuda.empty_cache()
+        log(f"  {rows:2d} x {n:6d} | {row['launch_ms']:7.2f} "
+            f"{row['eager_ms']:7.2f} {row['device_ms']:7.2f} "
+            f"{row['replay_ms']:7.2f} | {row['pool_bytes'] / 2 ** 20:.1f}")
+    log(json.dumps({"cuda_graphs": rows_out, "pool_first": first_pool,
+                    "pool_last": held}))
+    del gen
+    torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError("cuda graphs: " + "; ".join(faults))
+    return rows_out
+
+
 def main():
     smi = card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2901,6 +3224,8 @@ def main():
                                             serve_s, train_ms)
     with phase("14 repro, band probe, variants"):
         tool_launches, probe_launches = repro_and_tools(attention, smi)
+    with phase("15 cuda graphs"):
+        cuda_graphs(smi)
 
     def per_step(key):  # 2 calls at each train shape per step
         return 2 * (nums["train_enc2"][key] + nums["train_enc3"][key])

@@ -224,7 +224,8 @@ def test_counters_hold_every_counter():
         "local_attention.backward_mma_launches", "periodic_attention.calls",
         "lstm_recurrence.launches", "lstm_recurrence.mma_launches",
         "ftb_tail.launches", "ftb_tail.mma_launches", "EvalForward.samples",
-        "EvalForward.padded_samples"}
+        "EvalForward.padded_samples", "EvalForward.graph_captures",
+        "EvalForward.graph_replays", "EvalForward.eager_forwards"}
     for key, value in got.items():
         owner, attr = key.split(".")
         assert value == getattr(owners[owner], attr)
