@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aero_tpu_torch.utils.profiling import annotate
+
 LEAKY_SLOPE = 0.2   # MelGAN and Seanet
 LRELU_SLOPE = 0.1   # HiFi-GAN
 
@@ -118,7 +120,10 @@ class SNConv1d(nn.Module):
     normalize(W v)``, ``sigma = u'^T W v`` with u' and v constants, so the
     gradient reaches W through sigma. ``store=True`` keeps u' in
     ``weight_u``; nothing else stores it (not ``self.training``). v is not
-    kept: each call recomputes it."""
+    kept: each call recomputes it. ``SNConv1d.power_iterations`` counts
+    the iterations of every instance (a forward's and ``step_u``'s)."""
+
+    power_iterations = 0
 
     def __init__(self, chin: int, chout: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, groups: int = 1,
@@ -134,6 +139,7 @@ class SNConv1d(nn.Module):
     @torch.no_grad()
     def _power_iteration(self):
         """(u', v) of one iteration from the stored u."""
+        SNConv1d.power_iterations += 1
         w = self.weight_orig.reshape(self.weight_orig.shape[0], -1)
         v = F.normalize(w.t() @ self.weight_u, dim=0, eps=1e-12)
         return F.normalize(w @ v, dim=0, eps=1e-12), v
@@ -286,12 +292,14 @@ class MultiPeriodDiscriminator(_HifiDiscriminator):
             for p in self.periods)
 
     def discriminate(self, x):
-        """([logits per period], [feature maps per period]) of ``x``."""
+        """([logits per period], [feature maps per period]) of ``x``; the
+        span ``hifi.mpd`` under a profiler."""
         logits, fmaps = [], []
-        for d in self.discriminators:
-            y, fmap = d(x)
-            logits.append(y)
-            fmaps.append(fmap)
+        with annotate("hifi.mpd"):
+            for d in self.discriminators:
+                y, fmap = d(x)
+                logits.append(y)
+                fmaps.append(fmap)
         return logits, fmaps
 
 
@@ -347,14 +355,16 @@ class MultiScaleDiscriminator(_HifiDiscriminator):
         ``store``: the spectral-normed convs keep their new u. In JAX a
         storing call runs the real input and then the fake one through
         each scale, so the fake forward reads the u the real one stored;
-        ``forward(y, y_hat, store=True)`` does the same."""
+        ``forward(y, y_hat, store=True)`` does the same. The span
+        ``hifi.msd`` under a profiler."""
         logits, fmaps = [], []
-        for i, d in enumerate(self.discriminators):
-            if i:
-                x = F.avg_pool1d(x, 4, 2, 2)
-            y, fmap = d(x, store)
-            logits.append(y)
-            fmaps.append(fmap)
+        with annotate("hifi.msd"):
+            for i, d in enumerate(self.discriminators):
+                if i:
+                    x = F.avg_pool1d(x, 4, 2, 2)
+                y, fmap = d(x, store)
+                logits.append(y)
+                fmaps.append(fmap)
         return logits, fmaps
 
     def step_u(self):

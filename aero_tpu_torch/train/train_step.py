@@ -33,6 +33,8 @@ Under a profiler, a step is the span ``train.step``, and its parts are
 ``train.disc_losses`` and ``train.disc_backward``, then
 ``train.reduce_fetch`` (the cross-rank reduce and the metrics' fetch, where
 the host waits for the device), ``train.gen_adam`` and ``train.disc_adam``.
+Inside them, HiFi's discriminator forwards open ``hifi.mpd`` and
+``hifi.msd`` and the mel L1 ``loss.mel``.
 """
 
 from __future__ import annotations
@@ -166,9 +168,10 @@ class LossComputer:
             if self.only_features:
                 out["adversarial_hifi"] = fm
             else:
-                mel_l1 = torch.mean(torch.abs(
-                    mel_spectrogram(hr, self.hr_sr, **self.mel_kw)
-                    - mel_spectrogram(pr, self.hr_sr, **self.mel_kw)))
+                with annotate("loss.mel"):
+                    mel_l1 = torch.mean(torch.abs(
+                        mel_spectrogram(hr, self.hr_sr, **self.mel_kw)
+                        - mel_spectrogram(pr, self.hr_sr, **self.mel_kw)))
                 out["adversarial_hifi"] = (
                     hifi_generator_loss(ys_g) + hifi_generator_loss(yp_g)
                     + fm + mel_l1 * self.mel_lambda)

@@ -79,7 +79,7 @@ _NO_SPAN = contextlib.nullcontext()
 # would take each span for a kernel that ran all that time.
 _Span = torch._C._profiler._RecordFunctionFast
 # the names of the program's spans start with one of these
-PREFIXES = ("train.", "serve.", "aero.")
+PREFIXES = ("train.", "serve.", "aero.", "hifi.", "loss.")
 
 
 def annotate(name: str):
@@ -185,9 +185,11 @@ def table(spans: dict) -> dict:
 
 def counters() -> tp.Dict[str, int]:
     """A snapshot of every counter of the program: {"<owner>.<counter>":
-    count}, the kernel wrappers' launch and call counts and the serving
-    path's samples and forwards."""
+    count}, the kernel wrappers' launch and call counts, the serving
+    path's samples and forwards, and the spectral norm's power
+    iterations."""
     from aero_tpu_torch.eval.forward import EvalForward
+    from aero_tpu_torch.models.discriminators import SNConv1d
     from aero_tpu_torch.ops.attention import local_attention, \
         periodic_attention
     from aero_tpu_torch.ops.ftb import ftb_tail
@@ -203,6 +205,7 @@ def counters() -> tp.Dict[str, int]:
         "EvalForward": (EvalForward, (
             "samples", "padded_samples", "graph_captures", "graph_replays",
             "eager_forwards")),
+        "SNConv1d": (SNConv1d, ("power_iterations",)),
     }
     return {f"{name}.{key}": int(getattr(owner, key))
             for name, (owner, keys) in owners.items() for key in keys}

@@ -1,9 +1,11 @@
 """The port's spans and counters on the CPU, at a tiny width: the span names
-of one train step and one chunked file under ``torch.profiler``, each inside
-its parent and none a user annotation; ``annotate`` with no profiler active;
-the device work put down to the spans, on recorded events;
-``EvalForward``'s sample counters; ``profiling.counters``."""
+of one train step (MelGAN, and HiFi's MPD, MSD and mel loss) and one chunked
+file under ``torch.profiler``, each inside its parent and none a user
+annotation; ``annotate`` with no profiler active; the device work put down
+to the spans, on recorded events; ``EvalForward``'s sample counters; the
+spectral norm's power iterations; ``profiling.counters``."""
 
+import copy
 import os
 
 import numpy as np
@@ -12,13 +14,15 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from aero_tpu_torch.eval.forward import ChunkedInference, EvalForward
+from aero_tpu_torch.models.discriminators import SNConv1d
+from aero_tpu_torch.models.factory import build_discriminators
 from aero_tpu_torch.ops.attention import local_attention, periodic_attention
 from aero_tpu_torch.ops.ftb import ftb_tail
 from aero_tpu_torch.ops.lstm import lstm_recurrence
 from aero_tpu_torch.train.build import build_models
 from aero_tpu_torch.train.train_step import TrainStep
 from aero_tpu_torch.utils import profiling
-from aero_tpu_torch.utils.config import load_config
+from aero_tpu_torch.utils.config import Config, load_config
 
 pytestmark = pytest.mark.torch_port
 
@@ -84,6 +88,43 @@ def test_train_step_spans_nest(models):
     assert parents["aero.encoder"] == {"train.gen_forward"}
     assert parents["aero.decoder"] == {"train.gen_forward"}
     assert parents["aero.blstm"] == {"aero.encoder"}
+
+
+def test_hifi_step_spans_nest(models):
+    """``discriminator_models=[hifi]``: each MPD and MSD forward (real, the
+    generator's fake, the discriminator's fake) opens ``hifi.mpd`` /
+    ``hifi.msd`` inside the step's part that runs it, the mel L1 opens
+    ``loss.mel`` inside ``train.gen_losses``, and the spectral-normed scale
+    (8 convs) counts 8 power iterations in each of its three forwards and
+    in the discriminator pass's ``step_u``. ``grads`` alone: the shared
+    generator keeps its weights."""
+    args, m = models
+    args = copy.deepcopy(args)
+    exp = args.experiment
+    exp.discriminator_models = ["hifi"]
+    exp.msd = Config._wrap(dict(hidden=16, num_D=2))
+    exp.mpd = Config._wrap(dict(hidden=4, periods=[2, 3]))
+    exp.mel_spectrogram = Config._wrap(dict(
+        n_fft=256, hop_length=64, win_length=256, n_mels=16))
+    exp.mel_spec_loss_lambda = 45
+    step = TrainStep(args, {"generator": m["generator"],
+                            **build_discriminators(exp, device="cpu")}, "cpu")
+    rng = np.random.default_rng(2)
+    lr = (0.1 * rng.standard_normal((2, 1, 2000))).astype(np.float32)
+    hr = (0.1 * rng.standard_normal((2, 1, 8000))).astype(np.float32)
+    before = SNConv1d.power_iterations
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step.grads(lr, hr)
+    assert SNConv1d.power_iterations - before == 4 * 8
+    spans = _spans(prof)
+    names = [s[0] for s in spans]
+    assert names.count("hifi.mpd") == names.count("hifi.msd") == 3
+    assert names.count("loss.mel") == 1
+    parents = _parents(spans)
+    for name in ("hifi.mpd", "hifi.msd"):
+        assert parents[name] == {"train.disc_real", "train.gen_losses",
+                                 "train.disc_losses"}, name
+    assert parents["loss.mel"] == {"train.gen_losses"}
 
 
 @pytest.mark.parametrize("pad_tail", [False, True])
@@ -215,7 +256,7 @@ def test_counters_hold_every_counter():
     owners = {"local_attention": local_attention,
               "periodic_attention": periodic_attention,
               "lstm_recurrence": lstm_recurrence, "ftb_tail": ftb_tail,
-              "EvalForward": EvalForward}
+              "EvalForward": EvalForward, "SNConv1d": SNConv1d}
     got = profiling.counters()
     assert set(got) == {
         "local_attention.launches", "local_attention.mma_launches",
@@ -225,7 +266,8 @@ def test_counters_hold_every_counter():
         "lstm_recurrence.launches", "lstm_recurrence.mma_launches",
         "ftb_tail.launches", "ftb_tail.mma_launches", "EvalForward.samples",
         "EvalForward.padded_samples", "EvalForward.graph_captures",
-        "EvalForward.graph_replays", "EvalForward.eager_forwards"}
+        "EvalForward.graph_replays", "EvalForward.eager_forwards",
+        "SNConv1d.power_iterations"}
     for key, value in got.items():
         owner, attr = key.split(".")
         assert value == getattr(owners[owner], attr)
