@@ -27,7 +27,7 @@ from torch import nn
 
 from aero_tpu_torch.models.modules import (
     FTB, Conv2d, ConvTranspose2dFreq, ConvTranspose2dTime, DConv, GroupNorm,
-    ScaledEmbedding,
+    ScaledEmbedding, norm_act,
 )
 from aero_tpu_torch.ops.spec import ispectro, spectro
 from aero_tpu_torch.utils.profiling import annotate
@@ -77,11 +77,11 @@ class HEncLayer(nn.Module):
             x = self.pre_conv(x)
         if self.freq_attn_block is not None:
             x = self.freq_attn_block(x)
-        x = F.gelu(self.norm1(self.conv(x)))
+        x = norm_act(self.norm1, self.conv(x), "gelu")
         if self.dconv is not None:
             x = self.dconv(x)
         if self.rewrite is not None:
-            x = F.glu(self.norm2(self.rewrite(x)), dim=1)
+            x = norm_act(self.norm2, self.rewrite(x), "glu")
         return x
 
 
@@ -114,15 +114,17 @@ class HDecLayer(nn.Module):
     def forward(self, x, skip, length: int):
         y = torch.cat([x, skip], dim=1)
         if self.rewrite is not None:
-            y = F.glu(self.norm1(self.rewrite(y)), dim=1)
+            y = norm_act(self.norm1, self.rewrite(y), "glu")
         if self.dconv is not None:
             y = self.dconv(y)
-        z = self.norm2(self.conv_tr(y))
+        # GELU before the trim: elementwise, so the kept values are the same
+        z = norm_act(self.norm2, self.conv_tr(y),
+                     "none" if self.last else "gelu")
         if not self.freq:
             z = z[..., self.pad:self.pad + length]
         elif self.pad:
             z = z[:, :, self.pad:-self.pad]
-        return z if self.last else F.gelu(z)
+        return z
 
 
 class Aero(nn.Module):

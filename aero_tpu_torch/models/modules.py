@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aero_tpu_torch.ops import attention, ftb, lstm
+from aero_tpu_torch.ops import attention, ftb, group_norm, lstm
 from aero_tpu_torch.parallel import mesh
 from aero_tpu_torch.utils import flops
 from aero_tpu_torch.utils.profiling import annotate
@@ -80,11 +80,37 @@ class Linear(nn.Linear):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm with float32 statistics, output in the input's dtype."""
+    """GroupNorm with float32 statistics, output in the input's dtype, and
+    the activation that follows it (``act``: "none", "gelu", "glu" over
+    channels, or "snake" with its per-row ``a``; ``ops.group_norm``).
 
-    def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
-                            self.eps).to(x.dtype)
+    While autograd records (training): ``F.group_norm`` on a float32 copy
+    of x, rounded to x's dtype, then the activation apart in that dtype;
+    each forward adds one to ``group_norm.autograd_calls``. Otherwise
+    (serving, ``EvalForward`` and validation under ``torch.inference_mode``
+    or ``no_grad``): ``ops.group_norm.group_norm``, the kernel pair of
+    ``csrc/group_norm.cu`` on a CUDA tensor, its plain version on the CPU.
+    That path reduces the statistics in float32, normalises and activates
+    in float32, and rounds once to x's dtype.
+    """
+
+    def forward(self, x, act: str = "none", a=None):
+        if not torch.is_grad_enabled():
+            return group_norm.group_norm(x.contiguous(), self.num_groups,
+                                         self.weight, self.bias, self.eps,
+                                         act, a)
+        group_norm.group_norm.autograd_calls += 1
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                         self.eps).to(x.dtype)
+        return group_norm.activation(y, act, a)
+
+
+def norm_act(norm, x, act: str):
+    """``norm`` (a GroupNorm or ``nn.Identity``) then ``act``, fused into
+    the GroupNorm."""
+    if isinstance(norm, GroupNorm):
+        return norm(x, act)
+    return group_norm.activation(norm(x), act)
 
 
 class BatchNorm(nn.Module):
@@ -165,10 +191,7 @@ class Snake(nn.Module):
         self.a = nn.Parameter(torch.ones(freq_dim))
 
     def forward(self, x):
-        n, c, t = x.shape
-        a = self.a.to(x.dtype).view(1, -1, 1, 1)
-        x4 = x.reshape(-1, self.a.shape[0], c, t)
-        return (x4 + (1.0 / a) * torch.sin(x4 * a) ** 2).reshape(n, c, t)
+        return group_norm.snake(x, self.a)
 
 
 class LayerScale(nn.Module):
@@ -398,7 +421,8 @@ class LocalState(nn.Module):
 class DConvLayer(nn.Module):
     """One residual step of DConv: dilated k=3 conv, GroupNorm, Snake (or
     GELU or ReLU), optional BLSTM and LocalState, 1x1 conv, GroupNorm, GLU,
-    LayerScale."""
+    LayerScale. Snake or GELU runs inside the first GroupNorm and the GLU
+    (``conv2[2]``, kept for the state_dict's indices) inside the second."""
 
     def __init__(self, channels: int, hidden: int, dilation: int, freq_dim,
                  lstm: bool, time_attn: bool, init_value: float,
@@ -418,12 +442,19 @@ class DConvLayer(nn.Module):
                                    LayerScale(channels, init_value))
 
     def forward(self, x):
-        h = self.act(self.conv1(x))
+        conv1, norm1 = self.conv1
+        if isinstance(self.act, Snake):
+            h = norm1(conv1(x), "snake", self.act.a)
+        elif isinstance(self.act, nn.GELU):
+            h = norm1(conv1(x), "gelu")
+        else:
+            h = self.act(norm1(conv1(x)))
         if self.lstm is not None:
             h = self.lstm(h)
         if self.time_attn is not None:
             h = self.time_attn(h)
-        return x + self.conv2(h)
+        conv2, norm2, _, scale = self.conv2
+        return x + scale(norm2(conv2(h), "glu"))
 
 
 class DConv(nn.Module):

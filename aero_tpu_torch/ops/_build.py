@@ -94,13 +94,14 @@ def library() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         build_log = _build(path)
     lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, argtypes in (
             ("aero_local_attention_fwd", [ptr] * 6 + [i32] * 5 + [ptr]),
             ("aero_local_attention_bwd", [ptr] * 12 + [i32] * 5 + [ptr]),
             ("aero_lstm_recurrence", [ptr] * 4 + [i32] * 4 + [ptr]),
             ("aero_ftb_tail", [ptr] * 7 + [i32] * 7 + [ptr]),
-            ("aero_ftb_tail_mma", [ptr] * 6 + [i32] * 5 + [ptr])):
+            ("aero_ftb_tail_mma", [ptr] * 6 + [i32] * 5 + [ptr]),
+            ("aero_group_norm", [ptr] * 6 + [i32] * 9 + [f32, i32, i32, ptr])):
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i32
     lib.aero_cuda_error_string.argtypes = [i32]

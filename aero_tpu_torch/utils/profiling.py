@@ -185,14 +185,15 @@ def table(spans: dict) -> dict:
 
 def counters() -> tp.Dict[str, int]:
     """A snapshot of every counter of the program: {"<owner>.<counter>":
-    count}, the kernel wrappers' launch and call counts, the serving
-    path's samples and forwards, and the spectral norm's power
-    iterations."""
+    count}, the kernel wrappers' launch and call counts (GroupNorm's on
+    aten's autograd path too), the serving path's samples and forwards,
+    and the spectral norm's power iterations."""
     from aero_tpu_torch.eval.forward import EvalForward
     from aero_tpu_torch.models.discriminators import SNConv1d
     from aero_tpu_torch.ops.attention import local_attention, \
         periodic_attention
     from aero_tpu_torch.ops.ftb import ftb_tail
+    from aero_tpu_torch.ops.group_norm import group_norm
     from aero_tpu_torch.ops.lstm import lstm_recurrence
 
     owners = {
@@ -202,6 +203,7 @@ def counters() -> tp.Dict[str, int]:
         "periodic_attention": (periodic_attention, ("calls",)),
         "lstm_recurrence": (lstm_recurrence, ("launches", "mma_launches")),
         "ftb_tail": (ftb_tail, ("launches", "mma_launches")),
+        "group_norm": (group_norm, ("calls", "autograd_calls")),
         "EvalForward": (EvalForward, (
             "samples", "padded_samples", "graph_captures", "graph_replays",
             "eager_forwards")),

@@ -197,7 +197,17 @@ prints its time:
    device; the graphs' pool within POOL_GROWTH of its first capture's.
    Then per shape, in the default algorithms: host ms of the eager
    launches and of the eager forward, the graph's device ms, the replayed
-   forward's host ms and the pool one graph alone holds.
+   forward's host ms and the pool one graph alone holds;
+16. the GroupNorm kernel pair (``group_norm_kernels``): every GroupNorm
+   site of the canonical generator at speech (T 2501) and music (T 6892),
+   batch 1 and 16, in bfloat16 (speech batch 1 in float32 too), against
+   the plain version (GN_TOL), eagerly and as two replays of a CUDA graph
+   that must give the eager bits and move no counter; ragged T, a GLU
+   half-plane no vector width divides and misaligned x; a served forward
+   launches the pair at every site and takes no autograd path, a forward
+   under autograd the reverse; per site at speech batch 1 and 16 the
+   pair's ms beside its bound, the plain version, the library call and the
+   chain the port ran before.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and the result JSON.
@@ -274,6 +284,13 @@ FTB_SHAPES = ((BATCH, 48, 256, 2501), (BATCH, 48, 64, 2501),
 # max|kernel - plain| <= tol * max|plain|: float32 2C-term sums in another
 # order; bfloat16 rounds the output once, so up to 2 ulps (2^-6 relative)
 FTB_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+# GroupNorm with its activation (phase 16), max|kernel - plain| <= tol *
+# max|plain|: float32 statistics in another order (Welford slices against
+# aten's rows), erf and sin within ulps; bfloat16 rounds once, so a float32
+# gap across a rounding boundary moves an output one ulp (2^-8 of it)
+GN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# speech and music 10 s chunks: T 2501 and 6892 analysis frames
+GN_CHUNKS = {"speech": 4000 * SECONDS, "music": 11025 * SECONDS}
 CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf")
 
 
@@ -3143,6 +3160,207 @@ def cuda_graphs(smi):
     return rows_out
 
 
+def group_norm_sites(gn, chunk: int):
+    """(name, x shape, groups, act, rows of a) of each GroupNorm call in one
+    bfloat16 forward of the canonical generator at the lr_sr whose 10 s
+    chunk is ``chunk`` samples, at batch 1; checks that the forward
+    launched the kernel pair at every site and took no autograd path, and
+    that a forward while autograd records does the reverse."""
+    from aero_tpu_torch.models import modules as M
+    from aero_tpu_torch.models.factory import (
+        CANONICAL_AERO_4_16, build_generator)
+
+    lr_sr = chunk // SECONDS
+    kw = dict(CANONICAL_AERO_4_16, lr_sr=lr_sr, hr_sr=4 * lr_sr)
+    gen = build_generator(kw, "bfloat16", "cuda", seed=0)
+    sites = []
+
+    def record(name):
+        def hook(m, args):
+            x = args[0]
+            act = args[1] if len(args) > 1 else "none"
+            rows = args[2].shape[0] if len(args) > 2 else 0
+            sites.append((name, tuple(x.shape), m.num_groups, act, rows))
+        return hook
+    hooks = [m.register_forward_pre_hook(record(name))
+             for name, m in gen.named_modules()
+             if isinstance(m, M.GroupNorm)]
+    x = 0.1 * torch.randn(1, 1, chunk, device="cuda")
+    counts = (gn.group_norm.calls, gn.group_norm.autograd_calls)
+    with torch.inference_mode():
+        gen(x)
+    for h in hooks:
+        h.remove()
+    served = (gn.group_norm.calls - counts[0],
+              gn.group_norm.autograd_calls - counts[1])
+    counts = (gn.group_norm.calls, gn.group_norm.autograd_calls)
+    gen(x)  # autograd records (the forward alone: the eval-mode LSTM)
+    trained = (gn.group_norm.calls - counts[0],
+               gn.group_norm.autograd_calls - counts[1])
+    log(f"  group_norm at 1 x {chunk}: {len(sites)} sites; (calls, "
+        f"autograd_calls) served {served}, while autograd records {trained}")
+    if served != (len(sites), 0) or trained != (0, len(sites)):
+        raise AssertionError(f"group_norm: counters {served}, {trained} for "
+                             f"{len(sites)} sites")
+    del gen
+    torch.cuda.empty_cache()
+    return sites
+
+
+def gn_inputs(shape, groups, act, rows, dtype, seed, offset=0):
+    """x = 2 + 3 N(0, 1) in ``dtype`` (``offset`` elements past its
+    allocation's start), weight 1 + 0.3 N, bias 0.3 N and Snake's a from
+    the init's Exponential(mean 10), float32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (2 + 3 * torch.randn(shape, device="cuda", generator=g)).to(dtype)
+    if offset:
+        x = at_offset(x, offset)
+    c = shape[1]
+    w = 1 + 0.3 * torch.randn(c, device="cuda", generator=g)
+    b = 0.3 * torch.randn(c, device="cuda", generator=g)
+    a = (torch.empty(rows, device="cuda").exponential_(0.1, generator=g)
+         if act == "snake" else None)
+    return x, groups, w, b, 1e-5, act, a
+
+
+def check_group_norm(gn, args, label):
+    """The kernel pair against the plain version on ``args``, then under a
+    CUDA graph: two replays must give the eager launch's bits and move no
+    counter. Returns the error over max|plain|."""
+    got = gn.group_norm(*args)
+    want = gn.reference_group_norm(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    dtype = args[0].dtype
+    del want
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = gn.group_norm(*args)
+    calls = gn.group_norm.calls
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(static.clone())
+    torch.cuda.synchronize()
+    same = (torch.equal(replays[0], replays[1])
+            and torch.equal(replays[0], got))
+    log(f"  group_norm {label} {str(dtype)[6:]:8s} {tuple(args[0].shape)} "
+        f"G {args[1]} {args[5]}: max abs err {err:.3e} ({err / scale:.1e} of "
+        f"max; tol {GN_TOL[dtype]:g}), replays {'same bits' if same else 'DIFFER'}")
+    if (got.shape != static.shape or not err <= GN_TOL[dtype] * scale
+            or not same or gn.group_norm.calls != calls):
+        raise AssertionError(f"group_norm {label} {tuple(args[0].shape)} "
+                             f"{args[5]} {dtype}: err {err} > "
+                             f"{GN_TOL[dtype]} * {scale}, replays same "
+                             f"{same}, calls moved by replays "
+                             f"{gn.group_norm.calls - calls}")
+    del graph, static, replays, got
+    return err / scale
+
+
+def group_norm_kernels(smi):
+    """Phase 16: the GroupNorm kernel pair (``ops.group_norm``) at every
+    GroupNorm site of the canonical generator, speech (T 2501) and music
+    (T 6892), at batch 1 and 16, bfloat16 (speech at batch 1 in float32
+    too), against the plain version, eagerly and as two replays of a CUDA
+    graph, which must give the eager bits; then ragged cases: T 777 and
+    1001, a GLU half-plane no vector width divides, x 3 (misaligned) and 8
+    elements past its allocation. Then per site at speech batch 1 and 16,
+    each call's device ms as a CUDA graph replays it: the kernel pair's
+    beside its bound (each input byte read twice, each output byte written
+    once, at the HBM rate), the plain version's, the library's
+    (``F.group_norm`` in x's dtype, then the activation) and the chain the
+    port ran before the pair (``F.group_norm`` on a float32 copy, the cast
+    back, the activation); and the pair's ms launched eagerly, which at
+    batch 1 is its host's. Returns the numbers."""
+    import torch.nn.functional as F
+
+    from aero_tpu_torch.ops import group_norm as gn
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    sites = {cfg: group_norm_sites(gn, n) for cfg, n in GN_CHUNKS.items()}
+    worst = 0.0
+    seed = 1600
+    for cfg, cfg_sites in sites.items():
+        for batch in (1, BATCH):
+            for dtype in ((f32, bf16) if (cfg, batch) == ("speech", 1)
+                          else (bf16,)):
+                for name, shape, groups, act, rows in cfg_sites:
+                    shape = (shape[0] * batch,) + shape[1:]
+                    seed += 1
+                    args = gn_inputs(shape, groups, act, rows, dtype, seed)
+                    err = check_group_norm(gn, args, f"{cfg} B{batch} {name}")
+                    worst = max(worst, err) if dtype == bf16 else worst
+                    del args
+                    torch.cuda.empty_cache()
+    ragged = [((3, 24, 5, 777), 4, a, 0, 0) for a in ("none", "gelu", "glu")]
+    ragged += [((10, 18, 1001), 1, "snake", 5, 0),
+               ((10, 18, 1001), 1, "gelu", 0, 0),
+               ((2, 6, 777), 2, "glu", 0, 0),        # half-plane 2331
+               ((3, 24, 5, 777), 4, "gelu", 0, 3), ((10, 18, 1001), 1,
+                                                     "snake", 5, 3),
+               ((3, 24, 5, 777), 4, "glu", 0, 3),
+               ((3, 24, 5, 777), 4, "gelu", 0, 8)]
+    for dtype in (f32, bf16):
+        for shape, groups, act, rows, offset in ragged:
+            seed += 1
+            check_group_norm(gn, gn_inputs(shape, groups, act, rows, dtype,
+                                           seed, offset),
+                             f"ragged +{offset}")
+
+    def library(x, groups, w, b, eps, act, a):
+        return gn.activation(F.group_norm(x, groups, w.to(x.dtype),
+                                          b.to(x.dtype), eps), act, a)
+
+    def parent(x, groups, w, b, eps, act, a):
+        return gn.activation(F.group_norm(x.float(), groups, w, b,
+                                          eps).to(x.dtype), act, a)
+
+    def graph_ms(fn, args, n):  # device ms of a call, its launches captured
+        fn(*args)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn(*args)
+        return time_ms(graph.replay, (), n)
+
+    numbers = {}
+    log(f"group_norm per site, bf16, device ms of a call replayed from a "
+        f"CUDA graph [{smi}]: kernel pair | bound "
+        f"(2 reads + 1 write at {PEAK_HBM_BYTES / 1e12:.2f} TB/s) | plain | "
+        f"library (F.group_norm in bf16 + act) | the chain before the pair "
+        f"(F.group_norm on f32 + cast + act) | the pair launched eagerly "
+        f"(host-bound at batch 1)")
+    for batch in (1, BATCH):
+        totals = dict.fromkeys(("kernel", "bound", "plain", "library",
+                                "parent", "kernel_eager"), 0.0)
+        for name, shape, groups, act, rows in sites["speech"]:
+            shape = (shape[0] * batch,) + shape[1:]
+            args = gn_inputs(shape, groups, act, rows, bf16, 7)
+            n = 50 if batch == 1 else 10
+            c_out = shape[1] // 2 if act == "glu" else shape[1]
+            out_bytes = args[0].numel() // shape[1] * c_out * 2
+            row = {"kernel": graph_ms(gn.group_norm, args, n),
+                   "bound": 1e3 * (4 * args[0].numel() + out_bytes)
+                   / PEAK_HBM_BYTES,
+                   "plain": graph_ms(gn.reference_group_norm, args, n),
+                   "library": graph_ms(library, args, n),
+                   "parent": graph_ms(parent, args, n),
+                   "kernel_eager": time_ms(gn.group_norm, args, n)}
+            for k, v in row.items():
+                totals[k] += v
+            numbers[f"speech_b{batch}.{name}"] = row
+            log(f"  B{batch:2d} {name:36s} {str(shape):22s} {act:5s} "
+                + " | ".join(f"{row[k]:.4f}" for k in totals))
+            del args
+            torch.cuda.empty_cache()
+        numbers[f"speech_b{batch}.forward"] = totals
+        log(f"  B{batch:2d} the {len(sites['speech'])} sites of a forward: "
+            + " | ".join(f"{k} {v:.3f}" for k, v in totals.items()))
+    log(json.dumps({"group_norm": numbers, "max_rel_err_bf16": worst}))
+    return numbers
+
+
 def main():
     smi = card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3226,6 +3444,8 @@ def main():
         tool_launches, probe_launches = repro_and_tools(attention, smi)
     with phase("15 cuda graphs"):
         cuda_graphs(smi)
+    with phase("16 group norm"):
+        group_norm_kernels(smi)
 
     def per_step(key):  # 2 calls at each train shape per step
         return 2 * (nums["train_enc2"][key] + nums["train_enc3"][key])

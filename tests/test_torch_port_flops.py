@@ -35,6 +35,7 @@ from aero_tpu.utils import flops as jflops
 from aero_tpu_torch.ops import _build
 from aero_tpu_torch.ops import attention as pattn
 from aero_tpu_torch.ops import ftb as pftb
+from aero_tpu_torch.ops import group_norm as pgn
 from aero_tpu_torch.ops import lstm as plstm
 from aero_tpu_torch.utils import flops as pflops
 
@@ -330,7 +331,7 @@ def test_tiny_train_step_matches_jax_walker():
 # --- route independence --------------------------------------------------
 
 def _fake_kernels(monkeypatch, calls):
-    """Every kernel launch of the three wrappers replaced by its plain
+    """Every kernel launch of the four wrappers replaced by its plain
     version on the CPU, and the wrappers' device checks by shape checks,
     so CPU tensors take the kernel route."""
     monkeypatch.setattr(_build, "on_cpu", lambda *tensors: False)
@@ -361,7 +362,12 @@ def _fake_kernels(monkeypatch, calls):
     monkeypatch.setattr(pattn, "_kernel_fwd", kernel_fwd)
     monkeypatch.setattr(pattn, "_kernel_bwd", kernel_bwd)
     monkeypatch.setattr(plstm, "_launch", lstm_launch)
+    def group_norm_launch(x, groups, weight, bias, eps, act, a):
+        calls.append("group_norm")
+        return pgn.reference_group_norm(x, groups, weight, bias, eps, act, a)
+
     monkeypatch.setattr(pftb, "_launch", ftb_launch)
+    monkeypatch.setattr(pgn, "_launch", group_norm_launch)
 
 
 def test_eval_count_is_route_independent(monkeypatch):
@@ -390,7 +396,7 @@ def test_eval_count_is_route_independent(monkeypatch):
     faked = count()
     assert default.total == switched.total == faked.total
     assert collections.Counter(calls) == {"attention_fwd": 4, "lstm": 8,
-                                          "ftb": 4}
+                                          "ftb": 4, "group_norm": 24}
     assert switched["lstm"] < default["lstm"]  # its projection: a matmul
 
 

@@ -205,3 +205,108 @@ def test_batchnorm_train_mode_matches_jax(shape):
     ref = ref * port.weight.view(1, -1, *[1] * (len(shape) - 2)) \
         + port.bias.view(1, -1, *[1] * (len(shape) - 2))
     np.testing.assert_allclose(y.numpy(), ref.detach().numpy(), atol=ATOL)
+
+
+# --- GroupNorm with the activation that follows it (ops.group_norm) -------
+
+# (act, x's shape, groups): GLU's pair c, c + C/2 in two groups of a sample;
+# Snake on [B*F, C, T] with F = 3 rows of a; a T that no vector width divides
+GN_CASES = {"gelu": ((2, 8, 3, 13), 4), "glu": ((2, 8, 3, 13), 4),
+            "snake": ((6, 8, 13), 1)}
+# sha256 of the sorted "key shape" lines of Aero's state_dict at the speech
+# config, as the checkpoints hold it
+AERO_STATE_KEYS = (319, "65ce1e9385a65da7bd70b03d9ec92fc34c774ad4ae0db266887"
+                        "e7907618a61f2")
+
+
+def _gn_case(act, dtype, seed=3):
+    shape, groups = GN_CASES[act]
+    g = torch.Generator().manual_seed(seed)
+    norm = pm.GroupNorm(groups, shape[1])
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.3 * torch.randn(shape[1], generator=g))
+        norm.bias.copy_(0.3 * torch.randn(shape[1], generator=g))
+    x = (2 + 3 * torch.randn(shape, generator=g)).to(dtype)
+    a = 0.5 + 12 * torch.rand(3, generator=g) if act == "snake" else None
+    return norm, x, a
+
+
+def _parent_chain(norm, x, act, a):
+    """GroupNorm as it ran before the fused path: F.group_norm on a float32
+    copy, rounded to x's dtype, then the activation apart in that dtype."""
+    y = torch.nn.functional.group_norm(x.float(), norm.num_groups,
+                                       norm.weight, norm.bias,
+                                       norm.eps).to(x.dtype)
+    if act == "gelu":
+        return torch.nn.functional.gelu(y)
+    if act == "glu":
+        return torch.nn.functional.glu(y, dim=1)
+    n, c, t = y.shape
+    a4 = a.to(y.dtype).view(1, -1, 1, 1)
+    y4 = y.reshape(-1, a.shape[0], c, t)
+    return (y4 + (1.0 / a4) * torch.sin(y4 * a4) ** 2).reshape(n, c, t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu", "glu", "snake"])
+def test_group_norm_plain_matches_parent_chain(act, dtype):
+    """Without autograd the module takes the plain version: the parent's
+    chain computed in float32 and rounded once to x's dtype, so the same
+    bits in float32 and one bfloat16 rounding of it in bfloat16."""
+    norm, x, a = _gn_case(act, dtype)
+    with torch.inference_mode():
+        got = norm(x, act, a)
+    want = _parent_chain(norm, x.float(), act, a).to(dtype)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu", "glu", "snake"])
+def test_group_norm_autograd_path_is_the_parents(act, dtype):
+    """While autograd records, output and gradients are the parent's bits,
+    and the forward counts as an autograd call."""
+    from aero_tpu_torch.ops.group_norm import group_norm
+
+    norm, x, a = _gn_case(act, dtype)
+    leaves = [norm.weight, norm.bias] + ([a.requires_grad_()] if a is not None
+                                         else [])
+    x = x.requires_grad_()
+    before = (group_norm.autograd_calls, group_norm.calls)
+    got = norm(x, act, a)
+    assert (group_norm.autograd_calls, group_norm.calls) == (
+        before[0] + 1, before[1])
+    want = _parent_chain(norm, x, act, a)
+    cot = torch.randn(got.shape, generator=torch.Generator().manual_seed(4))
+    got_grads = torch.autograd.grad(got, [x] + leaves, cot.to(dtype))
+    want_grads = torch.autograd.grad(want, [x] + leaves, cot.to(dtype))
+    assert torch.equal(got, want)
+    for g, w in zip(got_grads, want_grads):
+        assert torch.equal(g, w)
+
+
+def test_aero_state_dict_keys_unchanged():
+    """The fused norms keep every parameter where checkpoints hold it."""
+    import hashlib
+
+    from aero_tpu_torch.models.aero import Aero
+    from aero_tpu_torch.models.factory import CANONICAL_AERO_4_16
+
+    kw = dict(CANONICAL_AERO_4_16, strides=tuple(CANONICAL_AERO_4_16[
+        "strides"]))
+    sd = Aero(**kw).state_dict()
+    text = "\n".join(f"{k} {tuple(v.shape)}" for k, v in sorted(sd.items()))
+    assert (len(sd), hashlib.sha256(text.encode()).hexdigest()) == \
+        AERO_STATE_KEYS
+
+
+@pytest.mark.parametrize("fault", ["non-contiguous", "float16"])
+def test_group_norm_wrapper_raises(fault):
+    from aero_tpu_torch.ops.group_norm import group_norm
+
+    w, b = torch.ones(8), torch.zeros(8)
+    x = torch.randn(2, 13, 8).transpose(1, 2)      # [2, 8, 13], strided
+    if fault == "float16":
+        x = x.contiguous().half()
+    with pytest.raises(TypeError if fault == "float16" else ValueError):
+        group_norm(x, 4, w, b, 1e-5, "gelu")

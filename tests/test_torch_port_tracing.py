@@ -18,6 +18,7 @@ from aero_tpu_torch.models.discriminators import SNConv1d
 from aero_tpu_torch.models.factory import build_discriminators
 from aero_tpu_torch.ops.attention import local_attention, periodic_attention
 from aero_tpu_torch.ops.ftb import ftb_tail
+from aero_tpu_torch.ops.group_norm import group_norm
 from aero_tpu_torch.ops.lstm import lstm_recurrence
 from aero_tpu_torch.train.build import build_models
 from aero_tpu_torch.train.train_step import TrainStep
@@ -70,13 +71,24 @@ def _parents(spans):
 
 
 def test_train_step_spans_nest(models):
+    """The step's spans nest; its generator forward runs each GroupNorm
+    once, on aten's autograd path, and launches no kernel pair."""
+    from aero_tpu_torch.models.modules import GroupNorm
+
     args, m = models
     step = TrainStep(args, m, "cpu")
     rng = np.random.default_rng(0)
     lr = (0.1 * rng.standard_normal((2, 1, 2000))).astype(np.float32)
     hr = (0.1 * rng.standard_normal((2, 1, 8000))).astype(np.float32)
+    before = profiling.counters()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step(lr, hr)
+    after = profiling.counters()
+    sites = sum(isinstance(mod, GroupNorm)
+                for mod in m["generator"].modules())
+    assert sites > 0 and (after["group_norm.autograd_calls"]
+                          - before["group_norm.autograd_calls"]) == sites
+    assert after["group_norm.calls"] == before["group_norm.calls"]
     spans = _spans(prof)
     names = [s[0] for s in spans]
     assert set(names) == TRAIN_SPANS and names.count("train.step") == 1
@@ -256,7 +268,8 @@ def test_counters_hold_every_counter():
     owners = {"local_attention": local_attention,
               "periodic_attention": periodic_attention,
               "lstm_recurrence": lstm_recurrence, "ftb_tail": ftb_tail,
-              "EvalForward": EvalForward, "SNConv1d": SNConv1d}
+              "group_norm": group_norm, "EvalForward": EvalForward,
+              "SNConv1d": SNConv1d}
     got = profiling.counters()
     assert set(got) == {
         "local_attention.launches", "local_attention.mma_launches",
@@ -264,7 +277,8 @@ def test_counters_hold_every_counter():
         "local_attention.backward_launches",
         "local_attention.backward_mma_launches", "periodic_attention.calls",
         "lstm_recurrence.launches", "lstm_recurrence.mma_launches",
-        "ftb_tail.launches", "ftb_tail.mma_launches", "EvalForward.samples",
+        "ftb_tail.launches", "ftb_tail.mma_launches", "group_norm.calls",
+        "group_norm.autograd_calls", "EvalForward.samples",
         "EvalForward.padded_samples", "EvalForward.graph_captures",
         "EvalForward.graph_replays", "EvalForward.eager_forwards",
         "SNConv1d.power_iterations"}
