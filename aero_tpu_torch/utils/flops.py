@@ -35,14 +35,12 @@ from __future__ import annotations
 
 import functools
 import math
-import os
 import typing as tp
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["FlopCount", "count_flops", "counted", "peak_flops_per_sec",
-           "mfu"]
+__all__ = ["FlopCount", "count_flops", "counted"]
 
 aten = torch.ops.aten
 
@@ -267,48 +265,3 @@ def dft_flops(rows: int, frames: int, n_fft: int) -> int:
     n_fft * 2 (n_fft // 2 + 1) a signal (``aero_tpu/ops/spec.py:100-233``);
     its backward is one more."""
     return 2 * rows * frames * n_fft * 2 * (n_fft // 2 + 1)
-
-
-# --- the denominator -----------------------------------------------------
-
-# bf16 dense tensor-core peaks, keyed by a substring of the lower-cased
-# torch.cuda.get_device_name (NVIDIA H100 data sheet)
-_PEAKS_BF16 = (
-    ("h100 80gb hbm3", 989.4e12),  # H100 SXM5
-    ("h100 pcie", 756e12),
-    ("h100 nvl", 835e12),
-)
-
-
-def peak_flops_per_sec(device=None, precision: str = "bfloat16"
-                       ) -> tp.Optional[float]:
-    """The bf16 dense peak of the CUDA card ``device`` (default: the
-    current one), or None: on the CPU, on a card not in the table, and for
-    a ``precision`` other than bfloat16 (a float32 product does not run at
-    the bf16 rate on this card, unlike on a TPU). ``AERO_PEAK_TFLOPS`` (in
-    TFLOP/s) overrides it. The peak is per card: a multi-card caller
-    scales it by the number of cards."""
-    env = os.environ.get("AERO_PEAK_TFLOPS")
-    if env:
-        return float(env) * 1e12
-    if str(precision) != "bfloat16":
-        return None
-    if device is None:
-        if not torch.cuda.is_available():
-            return None
-        device = torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type != "cuda":
-        return None
-    name = torch.cuda.get_device_name(device).lower()
-    for key, peak in _PEAKS_BF16:
-        if key in name:
-            return peak
-    return None  # an unknown card: explicit rather than a guess
-
-
-def mfu(flops_per_call: int, sec_per_call: float,
-        peak: tp.Optional[float]) -> tp.Optional[float]:
-    if not peak or sec_per_call <= 0:
-        return None
-    return flops_per_call / sec_per_call / peak

@@ -50,10 +50,8 @@ prints its time:
    AERO_FTB_KERNEL=1, AERO_ATTN_BAND=128): one forward that must launch the
    LSTM kernel 8 times, the banded attention 4 times and the FTB kernel 4
    times, all on the tensor cores, and the whole-forward gap against
-   the three plain versions. The
-   realtime factor and per-layer times of both paths, side by side, and
-   each layer's FLOPs (``utils.flops.count_flops`` of its calls) and MFU
-   against the card's bf16 dense peak (printed, not gated);
+   the three plain versions, and the opt-in forward's distance from the
+   default one (printed);
 7. training: the canonical generator and MelGAN discriminator from the
    seeded init. At batch 4, one step's losses, generator gradient and each
    LocalState gradient leaf with the kernels against the same step with
@@ -136,8 +134,9 @@ prints its time:
    bf16: 8 forward launches on the tensor cores, 2 each at enc2 (C' 12),
    enc3 (24) and the decoders of plan index 2 (24) and 3 (48), the
    whole-forward gap to plain (bf16 2e-2, f32 1e-3), the realtime factor
-   and per-layer times, and with the opt-in switches 12 LSTM launches (4
-   in the decoder at H 96; H 192 takes cuDNN), 8 banded and 4 FTB; (b) its
+   and the device ms of the program's spans, and with the opt-in switches
+   12 LSTM launches (4 in the decoder at H 96; H 192 takes cuDNN), 8
+   banded and 4 FTB; (b) its
    train step: phase 7's B = 4 gaps, and at B = 16 x 2 s 8 + 16 launches a
    step, the median of 5, peak memory and a profiled step; (c) serving
    with ``freq_ends=2, act_func=gelu``: enc3 on the time axis, its 2
@@ -147,17 +146,7 @@ prints its time:
    plain version; (e) the predict CLI with ``experiment.upsample=true`` and
    ``experiment.aero.spec_upsample=false`` on the 35 s file, whose output
    has the 16 kHz resampled input's length;
-13. the bench twin: ``python -m aero_tpu_torch.bench`` as a subprocess in
-   serving and in train mode (AERO_BENCH_TRAIN=1) at its defaults (the
-   canonical config, bf16, B 16), each one stdout line printed and held to
-   the root ``bench.py``'s keys, finite positive numbers, 0 < mfu <= 1.05
-   and a peak of 989.4 TFLOP/s on an H100 SXM, its counted call launching
-   4 (serving) and 4 + 8 (train) attention kernels; beside phase 6's and
-   7's times. Then ``count_flops`` of the serving forward and of the train
-   step with the kernels, under the plain swaps and with AERO_LSTM_KERNEL=1
-   AERO_FTB_KERNEL=1 (and the serving forward with both), which must be
-   one number each, within 1% of the JAX walker's count of the same work
-   (JAX_SERVE_FLOPS, PORT_TRAIN_FLOPS);
+13. none: the other phases keep the numbers that logs and notes cite;
 14. the port's tools (``repro_and_tools``, in ``build/phase14``, removed
    after): (a) ``bash aero_tpu_torch/tools/repro_vctk.sh --dry-run`` as a
    subprocess (108 synthesized speakers, resampling and egs jsons for real,
@@ -654,7 +643,8 @@ def write_test_wav(path, seconds):
 
 def device_profile(fn, what, smi):
     """Wall time, device busy time, idle share and top 15 kernels of one
-    call of ``fn`` (torch.profiler)."""
+    call of ``fn`` (torch.profiler), logged; returns the idle share and the
+    profile."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -696,93 +686,29 @@ def device_profile(fn, what, smi):
         log(f"  NCCL collectives: "
             f"{sum(e.self_device_time_total for e in nccl) / 1e3:.3f} ms in "
             f"{sum(e.count for e in nccl)} launches")
-    return idle
+    return idle, prof
 
 
-def watched_layers(gen):
-    """(name, module) of the per-layer tables: each encoder and decoder,
-    their FTB and DConv blocks, and the BLSTMs and LocalStates in them
-    (several modules may share a name: their calls add up)."""
-    from aero_tpu_torch.models import modules as M
+def profile_forward(fwd, x, smi, what):
+    """The device ms of one forward in the program's spans
+    (``utils.profiling.attribute``) and the device's idle share
+    (``device_profile``)."""
+    from aero_tpu_torch.utils import profiling
 
-    for i, enc in enumerate(gen.encoder):
-        yield f"enc{i}", enc
-        for sub in ("freq_attn_block", "dconv"):
-            if getattr(enc, sub) is not None:
-                yield f"enc{i}.{sub}", getattr(enc, sub)
-        for m in enc.modules():
-            if isinstance(m, (M.BLSTM, M.LocalState)):
-                yield f"enc{i}.{type(m).__name__}", m
-    for j, dec in enumerate(gen.decoder):
-        yield f"dec{j}", dec
-        if dec.dconv is not None:  # dconv_mode & 2
-            yield f"dec{j}.dconv", dec.dconv
-            for m in dec.dconv.modules():
-                if isinstance(m, (M.BLSTM, M.LocalState)):
-                    yield f"dec{j}.{type(m).__name__}", m
+    _, prof = device_profile(lambda: fwd(x), f"{what} forward B={BATCH}",
+                             smi)
+    spans = profiling.table(profiling.attribute(profiling.events(
+        prof.profiler.kineto_results.events())))
+    log(f"device ms by span, the {what} forward B={BATCH} bf16 [{smi}]:")
+    for name in ("aero.encoder", "aero.decoder", "aero.blstm"):
+        count, _, ms, launches = spans.get(name, [0, 0.0, 0.0, 0])
+        log(f"  {name:14s} {ms:9.3f} ms  ({count} calls, {launches} "
+            "launches)")
 
 
-def layer_flops(gen, fwd, x):
-    """{layer: FLOPs} of one ``fwd(x)``: each watched module's calls,
-    their inputs recorded in one forward, counted one by one
-    (``utils.flops.count_flops``)."""
-    from aero_tpu_torch.utils.flops import count_flops
-
-    calls = []
-    hooks = [m.register_forward_pre_hook(
-        lambda m, a, name=name: calls.append((name, m, a)))
-        for name, m in watched_layers(gen)]
-    try:
-        fwd(x)
-    finally:
-        for h in hooks:
-            h.remove()
-    flops = {}
-    with torch.inference_mode():
-        for name, m, a in calls:
-            flops[name] = flops.get(name, 0) + count_flops(m, *a).total
-    return flops
-
-
-def profile_forward(gen, fwd, x, smi, what):
-    """Per-layer device time (CUDA events around modules) and the device's
-    busy share of one forward (torch.profiler); returns ({layer: ms},
-    idle share)."""
-    spans = {}
-
-    def watch(name, module):
-        def pre(_m, _a):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            spans.setdefault(name, []).append([ev, None])
-
-        def post(_m, _a, _o):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            spans[name][-1][1] = ev
-        return [module.register_forward_pre_hook(pre),
-                module.register_forward_hook(post)]
-
-    hooks = []
-    for name, module in watched_layers(gen):
-        hooks += watch(name, module)
-    t0 = time.perf_counter()
-    fwd(x)
-    wall = time.perf_counter() - t0
-    for h in hooks:
-        h.remove()
-    log(f"per-layer device time, one {what} forward B={BATCH} bf16 "
-        f"(wall {wall * 1e3:.1f} ms) [{smi}]:")
-    layers = {}
-    for name, pairs in spans.items():
-        layers[name] = sum(a.elapsed_time(b) for a, b in pairs)
-        log(f"  {name:28s} {layers[name]:9.3f} ms  ({len(pairs)} calls)")
-    return layers, device_profile(lambda: fwd(x), f"{what} forward B={BATCH}",
-                                  smi)
-
-
-def realtime_factor(fwd, x, smi, what) -> float:
-    """Median wall time of 5 forwards after a warm-up, host to host."""
+def realtime_factor(fwd, x, smi, what):
+    """Logs the median wall time of 5 forwards after a warm-up, host to
+    host."""
     fwd(x)
     runs = []
     for _ in range(5):
@@ -794,7 +720,6 @@ def realtime_factor(fwd, x, smi, what) -> float:
         f"{BATCH * SECONDS / med:.1f}x (median of {len(runs)}: "
         f"{med * 1e3:.1f} ms per batch, host to host; "
         f"{', '.join(f'{r * 1e3:.1f}' for r in runs)}) [{smi}]")
-    return med
 
 
 def launch_counts(attention, lstm, ftb):
@@ -858,9 +783,9 @@ def forward_gaps(fwd, fwd32, chunk, plain, what):
                              "plain")
 
 
-def serving(attention, lstm, ftb, smi):
-    """Phase 6 and the serving numbers; returns the kernel launches of the
-    default and of the opt-in batch-16 forward."""
+def serving(attention, lstm, ftb):
+    """Phase 6; returns the kernel launches of the default and of the
+    opt-in batch-16 forward."""
     from aero_tpu_torch import predict
     from aero_tpu_torch.eval.forward import EvalForward
     from aero_tpu_torch.models.factory import (
@@ -923,36 +848,7 @@ def serving(attention, lstm, ftb, smi):
             f"samples, realtime factor {out['realtime_factor']:.1f}x")
         if out["out_samples"] != 4 * n_in:
             raise AssertionError("predict output is not 4x the input")
-
-    serve_s = realtime_factor(fwd, x, smi, "default")
-    with switches(OPT_IN):
-        realtime_factor(fwd, x, smi, "opt-in")
-    layers, idle = profile_forward(gen, fwd, x, smi, "default")
-    with switches(OPT_IN):
-        layers_opt, idle_opt = profile_forward(gen, fwd, x, smi, "opt-in")
-    log(f"per-layer device ms, default | opt-in (idle share {idle:.3f} | "
-        f"{idle_opt:.3f}) [{smi}]:")
-    for name in layers:
-        log(f"  {name:28s} {layers[name]:9.3f} | {layers_opt[name]:9.3f}")
-    mfu_table(gen, fwd, x, layers, smi)
-    return launches, opt_launches, serve_s
-
-
-def mfu_table(gen, fwd, x, layers, smi):
-    """Each layer's FLOPs of the default serving forward beside its device
-    time, and its share of the card's bf16 dense peak (``tools/
-    mfu_table.py``'s table on the TPU); printed, not gated."""
-    from aero_tpu_torch.utils.flops import peak_flops_per_sec
-
-    peak = peak_flops_per_sec("cuda", "bfloat16")
-    flops = layer_flops(gen, fwd, x)
-    log(f"per-layer FLOPs and MFU, default forward B={BATCH} bf16 (peak "
-        f"{peak / 1e12 if peak else float('nan'):.1f} TFLOP/s) [{smi}]:")
-    for name, ms in layers.items():
-        share = flops[name] / (ms / 1e3) / peak if peak and ms > 0 else None
-        log(f"  {name:28s} {ms:9.3f} ms {flops[name] / 1e12:9.4f} TFLOP "
-            + (f"{share * 100:6.2f} % MFU" if share is not None else
-               "MFU n/a"))
+    return launches, opt_launches
 
 
 STFT_FLOOR = 1e-7  # the STFT loss's floor on a bin's power |z|^2
@@ -1751,7 +1647,8 @@ def serve_option(attention, lstm, ftb, smi, aero_kw, want_shapes,
     forward whose forward-kernel launches, all on the tensor cores, have
     ``want_shapes`` [B*F, T, H, C'], the whole-forward gap to the plain
     versions in bf16 and f32, with the opt-in switches one forward that
-    must launch ``optin``, the realtime factor and per-layer times.
+    must launch ``optin``, the realtime factor and the device ms of the
+    program's spans.
     Returns the launches of the default and of the opt-in forward."""
     from aero_tpu_torch.eval.forward import EvalForward
     from aero_tpu_torch.models.factory import (
@@ -1786,7 +1683,7 @@ def serve_option(attention, lstm, ftb, smi, aero_kw, want_shapes,
         with switches(OPT_IN):
             _, opt = checked_forward(fwd, x, counted, optin)
     realtime_factor(fwd, x, smi, what)
-    profile_forward(gen, fwd, x, smi, what)
+    profile_forward(fwd, x, smi, what)
     del gen, fwd
     torch.cuda.empty_cache()
     return launches, opt
@@ -1918,195 +1815,6 @@ def generator_options(attention, lstm, ftb, smi):
     local_state_options(attention, smi)
     predict_upsample(attention, smi)
     return out
-
-
-# FLOPs of the canonical configuration by the JAX package's walker
-# (aero_tpu/utils/flops.py; ``python -m tests.test_torch_port_flops
-# batch=16 precision=bfloat16 port=0``, traced on a CPU): gen.apply at
-# B = 16 x 10 s, and make_train_step at B = 16 x 2 s with the MelGAN MSD in
-# the package's default lowering, which runs the MelGAN's small grouped
-# convolutions as dense block-diagonal ones and counts their zero blocks,
-# and with them counted as grouped
-JAX_SERVE_FLOPS = 10_692_785_975_296
-JAX_TRAIN_FLOPS = 9_837_288_220_672
-JAX_TRAIN_GROUPED_FLOPS = 6_408_965_969_920
-# ... and the step the port runs, from the same script: the grouped count
-# less JAX's fourth MelGAN forward (the real audio again in its
-# discriminator loss; the port's step runs it once for both losses), its
-# average-pool convolutions and its decay einsums, plus the port's input
-# gradient of the first decoder's rewrite over the zero half of cat(0, skip)
-PORT_TRAIN_FLOPS = 6_696_702_979_072
-FLOP_RTOL = 0.01
-BENCH_KEYS = {
-    "realtime_factor": ["metric", "value", "unit", "vs_baseline", "mode",
-                        "model_tflops", "mfu", "peak_tflops", "peak_dtype"],
-    "train_throughput": ["metric", "value", "unit", "vs_baseline", "mode",
-                         "step_ms", "batch", "model_tflops", "mfu",
-                         "devices", "peak_tflops", "peak_dtype"]}
-H100_SXM = "H100 80GB HBM3"  # torch.cuda.get_device_name of the SXM5 card
-BENCH_TIMEOUT_S = 600
-
-
-def run_bench(train: bool, smi):
-    """``python -m aero_tpu_torch.bench`` at its defaults (canonical, bf16,
-    B 16), serving or ``AERO_BENCH_TRAIN=1``, in a subprocess with none of
-    the opt-in switches: its one stdout line, checked, and the kernel
-    launches of its counted call (from its log)."""
-    env = {k: v for k, v in os.environ.items() if k not in OPT_IN}
-    env["AERO_BENCH_TRAIN"] = "1" if train else "0"
-    proc = subprocess.run(
-        [sys.executable, "-m", "aero_tpu_torch.bench"],
-        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
-    what = "train" if train else "serving"
-    if proc.returncode != 0:
-        log(proc.stderr[-4000:])
-        raise AssertionError(f"bench twin ({what}) exited "
-                             f"{proc.returncode}")
-    lines = proc.stdout.strip().splitlines()
-    log(f"bench twin, {what} [{smi}]:")
-    log(lines[-1] if lines else "(no output)")
-    if len(lines) != 1:
-        raise AssertionError(f"bench twin ({what}) printed {len(lines)} "
-                             "lines, not 1")
-    result = json.loads(lines[0])
-    keys = BENCH_KEYS["train_throughput" if train else "realtime_factor"]
-    if list(result) != keys:
-        raise AssertionError(f"bench twin ({what}) keys {list(result)}, "
-                             f"want {keys}")
-    numbers = {k: v for k, v in result.items()
-               if k not in ("metric", "unit", "mode", "peak_dtype")}
-    if not all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
-               for v in numbers.values()):
-        raise AssertionError(f"bench twin ({what}): a number is not finite "
-                             f"and positive: {numbers}")
-    if not 0 < result["mfu"] <= 1.05:
-        raise AssertionError(f"bench twin ({what}): mfu {result['mfu']}")
-    if H100_SXM in torch.cuda.get_device_name(0) and \
-            result["peak_tflops"] != 989.4:
-        raise AssertionError(f"bench twin ({what}): peak_tflops "
-                             f"{result['peak_tflops']} on an H100 SXM")
-    found = re.findall(r"launches of the counted call: (\{.*\})",
-                       proc.stderr)
-    if len(found) != 1:
-        raise AssertionError(f"bench twin ({what}): no launch log")
-    return result, json.loads(found[0])
-
-
-def count_checked(what, runs, want, want_launches):
-    """``runs`` {route: (FLOPs, launches)}: one count on every route,
-    within FLOP_RTOL of ``want``, and the kernel launches of each route
-    ``want_launches[route]``; raises otherwise."""
-    for route, (n, launches) in runs.items():
-        log(f"  {what}, {route}: {n} FLOPs, kernel launches {launches}")
-    counts = {n for n, _ in runs.values()}
-    if len(counts) != 1:
-        raise AssertionError(f"{what}: the count depends on the route: "
-                             f"{ {r: n for r, (n, _) in runs.items()} }")
-    n = counts.pop()
-    if abs(n - want) > FLOP_RTOL * want:
-        raise AssertionError(f"{what}: {n} FLOPs, the JAX walker's count "
-                             f"of the same work is {want}")
-    bad = {r: l for r, (_, l) in runs.items() if l != want_launches[r]}
-    if bad:
-        raise AssertionError(f"{what}: kernel launches {bad}, want "
-                             f"{ {r: want_launches[r] for r in bad} }")
-    return n
-
-
-def bench_twin(attention, lstm, ftb, smi, serve_s, train_ms):
-    """Phase 13: the bench twin's serving and train lines, and its FLOP
-    count on every route. Returns the attention launches of the counted
-    serving forward and train step."""
-    from aero_tpu_torch.models.factory import (
-        CANONICAL_AERO_4_16, build_generator)
-    from aero_tpu_torch.utils.flops import count_flops
-
-    serve, serve_launches = run_bench(False, smi)
-    train, train_launches = run_bench(True, smi)
-    log(f"bench twin serving {serve['value']:.2f}x realtime ({serve['mode']}"
-        f", the minimum of 3 reps of 5) against phase 6's "
-        f"{BATCH * SECONDS / serve_s:.2f}x (median of 5 through EvalForward)"
-        f": {serve['value'] * serve_s / (BATCH * SECONDS) - 1:+.1%}; train "
-        f"step {train['step_ms']:.1f} ms (median of 3 reps of 8) against "
-        f"phase 7's {train_ms:.1f} ms (median of 5): "
-        f"{train['step_ms'] / train_ms - 1:+.1%}; MFU {serve['mfu']:.4f} | "
-        f"{train['mfu']:.4f} [{smi}]")
-    want_serve = {"attention_fwd": 4, "attention_bwd": 0, "lstm": 0,
-                  "ftb": 0}
-    want_train = dict(want_serve, attention_bwd=8)
-    if serve_launches != want_serve or train_launches != want_train:
-        raise AssertionError(f"bench twin launches {serve_launches} | "
-                             f"{train_launches}, want {want_serve} | "
-                             f"{want_train}")
-
-    counted = (attention, lstm, ftb)
-    plain = plain_swaps(*counted)
-    # AERO_ATTN_BAND changes the function (fewer pairs), so its count too:
-    # the route check takes the two switches that keep the function
-    optin = {k: OPT_IN[k] for k in ("AERO_LSTM_KERNEL", "AERO_FTB_KERNEL")}
-    none = {"attention": 0, "attention_mma": 0, "banded": 0, "lstm": 0,
-            "lstm_mma": 0, "ftb": 0, "ftb_mma": 0}
-    gen = build_generator(CANONICAL_AERO_4_16, "bfloat16", "cuda",
-                          seed=0).eval()
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy((0.1 * rng.standard_normal(
-        (BATCH, 1, SECONDS * LR_SR))).astype(np.float32)).cuda()
-
-    @torch.inference_mode()
-    def forward(lr):
-        return gen(lr)
-
-    def serve_count():
-        zero_counts(*counted)
-        n = count_flops(forward, x).total
-        return n, launch_counts(*counted)
-
-    runs = {"kernels": serve_count(),
-            "plain": forward_with(plain, serve_count)}
-    with switches(optin):
-        runs["opt-in"] = serve_count()
-        runs["opt-in plain"] = forward_with(plain, serve_count)
-    n_serve = count_checked(
-        f"serving forward B={BATCH} x {SECONDS} s", runs, JAX_SERVE_FLOPS, {
-            "kernels": dict(none, attention=4, attention_mma=4),
-            "plain": none, "opt-in plain": none,
-            "opt-in": dict(none, attention=4, attention_mma=4, lstm=8,
-                           lstm_mma=8, ftb=4, ftb_mma=4)})
-    del gen
-    models, step, lr, hr = train_setup("bfloat16", BATCH)
-
-    def train_count():
-        zero_attention_counts(attention)
-        n = count_flops(step.grads, lr, hr).total
-        return n, attention_counts(attention)
-
-    runs = {"kernels": train_count(),
-            "plain": forward_with({(attention, "local_attention"):
-                                   plain_attention(attention)}, train_count)}
-    with switches(optin):
-        runs["opt-in"] = train_count()
-    kernels = {"forward": 4, "forward_mma": 4, "backward": 8,
-               "backward_mma": 8}
-    n_train = count_checked(
-        f"train step B={BATCH} x 2 s", runs, PORT_TRAIN_FLOPS,
-        {"kernels": kernels, "opt-in": kernels,
-         "plain": dict.fromkeys(kernels, 0)})
-    log(f"FLOPs against the JAX walker: serving {n_serve} / "
-        f"{JAX_SERVE_FLOPS} = {n_serve / JAX_SERVE_FLOPS:.6f}; train step "
-        f"{n_train} / {PORT_TRAIN_FLOPS} (its count of the same step) = "
-        f"{n_train / PORT_TRAIN_FLOPS:.6f}, / {JAX_TRAIN_FLOPS} (default "
-        f"lowering) = {n_train / JAX_TRAIN_FLOPS:.4f}, / "
-        f"{JAX_TRAIN_GROUPED_FLOPS} (grouped) = "
-        f"{n_train / JAX_TRAIN_GROUPED_FLOPS:.4f}")
-    if (serve["model_tflops"] != round(n_serve / 1e12, 4)
-            or train["model_tflops"] != round(n_train / 1e12, 4)):
-        raise AssertionError(f"bench twin model_tflops {serve['model_tflops']}"
-                             f" | {train['model_tflops']} against the counts "
-                             f"here {n_serve} | {n_train}")
-    del models, step
-    torch.cuda.empty_cache()
-    return serve_launches, train_launches
 
 
 DDP_BATCH = 4  # the float32 step: 2 rows on each of 2 ranks
@@ -3421,8 +3129,7 @@ def main():
         lstm_err = check_lstm(lstm)
         ftb_err = check_ftb(ftb)
     with phase("6 serving"):
-        serve_launches, optin_launches, serve_s = serving(
-            attention, lstm, ftb, smi)
+        serve_launches, optin_launches = serving(attention, lstm, ftb)
     with phase("7 training"):
         train_gaps(attention)
         train_launches, train_ms = training(attention, smi)
@@ -3437,9 +3144,6 @@ def main():
         ddp_launches = data_parallel(smi, train_ms)
     with phase("12 generator options"):
         options = generator_options(attention, lstm, ftb, smi)
-    with phase("13 bench twin"):
-        twin_serve, twin_train = bench_twin(attention, lstm, ftb, smi,
-                                            serve_s, train_ms)
     with phase("14 repro, band probe, variants"):
         tool_launches, probe_launches = repro_and_tools(attention, smi)
     with phase("15 cuda graphs"):
@@ -3492,11 +3196,6 @@ def main():
     for i, key in enumerate(("forward_mma", "backward_mma")):
         kernels[i]["launches_options_train_dconv3_step"] = \
             options["train_dconv3"][key]
-    # phase 13: the bench twin's counted serving forward (4) and train
-    # step (4 + 8), in its own process
-    kernels[0]["launches_bench_twin_serving"] = twin_serve["attention_fwd"]
-    for i, key in enumerate(("attention_fwd", "attention_bwd")):
-        kernels[i]["launches_bench_twin_step"] = twin_train[key]
     # phase 14: the train launches of the repro run (a) and of the four
     # tool runs (c), whole runs (the float32 A/B arm on the SIMT kernels);
     # the band probe's float32 forward (b): 4 on the SIMT kernel

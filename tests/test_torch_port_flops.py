@@ -183,24 +183,6 @@ def test_lstm_counts_the_scan_whatever_runs_it():
     assert _grad_count(m, x) == 3 * (fwd + linear)
 
 
-def test_peak_flops(monkeypatch):
-    monkeypatch.delenv("AERO_PEAK_TFLOPS", raising=False)
-    assert pflops.peak_flops_per_sec("cpu") is None
-    if not torch.cuda.is_available():
-        assert pflops.peak_flops_per_sec() is None
-    monkeypatch.setattr(torch.cuda, "get_device_name",
-                        lambda *_: "NVIDIA H100 80GB HBM3")
-    assert pflops.peak_flops_per_sec("cuda:0") == 989.4e12
-    assert pflops.peak_flops_per_sec("cuda:0", "float32") is None
-    monkeypatch.setattr(torch.cuda, "get_device_name",
-                        lambda *_: "NVIDIA A100-SXM4-80GB")
-    assert pflops.peak_flops_per_sec("cuda:0") is None
-    monkeypatch.setenv("AERO_PEAK_TFLOPS", "500")
-    assert pflops.peak_flops_per_sec("cpu") == 500e12
-    assert pflops.mfu(10 ** 12, 0.5, 4e12) == 0.5
-    assert pflops.mfu(10 ** 12, 0.5, None) is None
-
-
 # --- the whole model against the JAX walker -----------------------------
 
 def _configs(overrides):

@@ -4,10 +4,12 @@ source of the port statically (imports inside functions included) and
 import every module in a fresh interpreter."""
 
 import ast
+import builtins
 import glob
 import os
 import re
 import subprocess
+import symtable
 import sys
 
 import pytest
@@ -110,6 +112,31 @@ def test_chip_smoke_fails_without_gpu():
     res = _run(["chip_smoke.py"], ROOT)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+# what every module has without binding it
+MODULE_DUNDERS = {"__file__", "__name__", "__doc__", "__spec__", "__loader__",
+                  "__package__", "__builtins__", "__cached__"}
+
+
+def test_chip_smoke_names_are_defined():
+    """Every global name a function of chip_smoke.py reads is bound at
+    module level, imported, a builtin or a module dunder: the script runs
+    on a GPU alone, where a name left behind would fail mid-way."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        top = symtable.symtable(f.read(), "chip_smoke.py", "exec")
+    bound = {s.get_name() for s in top.get_symbols()
+             if s.is_assigned() or s.is_imported()}
+    bound |= set(dir(builtins)) | MODULE_DUNDERS
+    missing, tables = set(), list(top.get_children())
+    while tables:
+        table = tables.pop()
+        tables += table.get_children()
+        missing |= {f"{table.get_name()}: {s.get_name()}"
+                    for s in table.get_symbols()
+                    if s.is_global() and s.is_referenced()
+                    and s.get_name() not in bound}
+    assert not missing, sorted(missing)
 
 
 @pytest.mark.parametrize("module", ["aero_tpu_torch.parallel.mesh",
