@@ -48,7 +48,7 @@
 namespace aero {
 // lstm_mma.cu: the bfloat16 recurrence, w packed by pack_w_hh_mma
 cudaError_t lstm_recurrence_mma(const void* xp, const void* w, const float* bias,
-                                void* out, int t_len, int hidden, int n,
+                                void* out, int t_len, int hidden, int n, int seq_tile,
                                 cudaStream_t stream);
 }  // namespace aero
 
@@ -189,16 +189,19 @@ cudaError_t launch(const void* xp, const void* w, const float* bias, void* out,
 // dtype (0 = float32, 1 = bfloat16); w: the packed W_hh, for float32
 // pack_w_hh's [2, hidden, 8, 4, hidden/8] float32, for bfloat16
 // pack_w_hh_mma's fragments (ops/lstm.py); bias: null or float32
-// [8*hidden]. hidden is a
+// [8*hidden]; seq_tile: the bfloat16 kernel's sequences per block (8, 16
+// or 32; 8 at hidden > 96), not read for float32. hidden is a
 // multiple of 8 up to 128. Launches on `stream`, allocates nothing and does
 // not synchronize. Returns the launch's cudaError_t (0 on success).
 extern "C" int aero_lstm_recurrence(const void* xp, const void* w,
                                     const void* bias, void* out, int t_len,
-                                    int hidden, int n, int dtype, void* stream) {
+                                    int hidden, int n, int dtype, int seq_tile,
+                                    void* stream) {
   if (t_len <= 0 || n <= 0) return cudaErrorInvalidValue;
   const float* bf = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(xp, w, bf, out, t_len, hidden, n, st);
-  if (dtype == 1) return aero::lstm_recurrence_mma(xp, w, bf, out, t_len, hidden, n, st);
+  if (dtype == 1)
+    return aero::lstm_recurrence_mma(xp, w, bf, out, t_len, hidden, n, seq_tile, st);
   return cudaErrorInvalidValue;
 }

@@ -16,9 +16,15 @@
 // unit and the CUDA cores) and a barrier.
 //
 // Design:
-// - a block owns 32 sequences (8 at H > 96, for registers) of one
-//   direction, with H/8 warps; warp r owns hidden units 8r..8r+7 and the
-//   four gates of each. Its W_hh rows are two m16 tiles, (i, f) and
+// - a block owns kSeq sequences of one direction, with H/8 warps. kSeq is
+//   8, 16 or 32 (8 alone at H > 96, for registers), chosen by the caller
+//   from N (seq_tile in ops/lstm.py): a step's latency grows with the
+//   (unit, sequence) pairs a thread updates, 2 per 8 sequences, so where N
+//   leaves SMs idle (a batch-1 forward: 14 blocks of 32 at N 208) smaller
+//   tiles spread the same steps over more SMs; where N fills the card the
+//   larger tile shares each W_hh fragment and barrier among more
+//   sequences. Warp r owns hidden units 8r..8r+7 and the four gates of
+//   each. Its W_hh rows are two m16 tiles, (i, f) and
 //   (g, o) of those 8 units, held as mma.sync A fragments in registers
 //   for the whole launch (pack_w_hh_mma in ops/lstm.py lays them out per
 //   lane, K zero-padded to a multiple of 16), loaded once;
@@ -33,9 +39,11 @@
 //   cp.async, issued kStages - 1 steps ahead, and the accumulators start
 //   from xp_t + bias (the bias in registers). Global loads into
 //   registers one step ahead leave their latency in every step: the
-//   step's shared-memory reads wait on them. The 16-byte cp.async needs
-//   N % 8 == 0, which every N of the model has (B x F x 26 with F a
-//   multiple of 4); another N copies with plain loads and stores;
+//   step's shared-memory reads wait on them. cp.async copies 16 bytes
+//   where N % 8 == 0 and 8 where N % 4 == 0, which every N of the model
+//   has (B x F x frames with F a multiple of 4; at batch 1, N % 8 is 4
+//   wherever F is 4 and the frames odd); another N copies with plain
+//   loads and stores, which leave their latency in the step;
 // - the pointwise update, on the special-function unit, is the largest
 //   part of a step once the product is on the tensor cores, so sigmoid is
 //   __fdividef(1, 1 + __expf(-x)) (ex2.approx and rcp.approx, a few ulp
@@ -55,31 +63,28 @@ __device__ __forceinline__ float sigmoid(float x) {
 }
 __device__ __forceinline__ float tanh_sfu(float x) { return fmaf(2.f, sigmoid(2.f * x), -1.f); }
 
-template <int H>
-constexpr int kSeqTile = H > 96 ? 8 : 32;  // sequences per block (registers)
-constexpr int kStages = 4;                  // xp ring: steps in flight + 1
+constexpr int kStages = 4;  // xp ring: steps in flight + 1
 
 // shared memory of one block: h [2][kSeq][kHLd] and the xp ring
 // [kStages][4H][kXLd], in bfloat16; row strides of 4 (mod 8) words, so
 // a warp's fragment reads hit 32 distinct banks
 template <int H>
 constexpr int kHLd = 16 * ((H + 15) / 16) + 8;
-template <int H>
-constexpr int kXLd = kSeqTile<H> == 8 ? 24 : kSeqTile<H> + 8;
-template <int H>
+template <int kSeq>
+constexpr int kXLd = (kSeq < 16 ? 16 : kSeq) + 8;
+template <int H, int kSeq>
 constexpr size_t kSmemBytes =
-    sizeof(__nv_bfloat16) * (2 * kSeqTile<H> * kHLd<H> + kStages * 4 * H * kXLd<H>);
+    sizeof(__nv_bfloat16) * (2 * kSeq * kHLd<H> + kStages * 4 * H * kXLd<kSeq>);
 
-template <int H>
+template <int H, int kSeq>
 __global__ void __launch_bounds__(4 * H)
 lstm_recurrence_mma_kernel(const bf16* __restrict__ xp, const uint4* __restrict__ w,
                            const float* __restrict__ bias, bf16* __restrict__ out,
                            int t_len, int n) {
   constexpr int kSteps = (H + 15) / 16;  // k16 steps, K zero-padded
-  constexpr int kSeq = kSeqTile<H>;
   constexpr int kSeqTiles = kSeq / 8;    // n8 tiles
   constexpr int kLd = kHLd<H>;           // h row stride (bf16), distinct banks
-  constexpr int kXld = kXLd<H>;          // xp row stride (bf16), distinct banks
+  constexpr int kXld = kXLd<kSeq>;       // xp row stride (bf16), distinct banks
   constexpr int kStage = 4 * H * kXld;   // one step's xp of the block
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* hs = reinterpret_cast<bf16*>(smem);  // h [2][kSeq][kLd]
@@ -91,7 +96,9 @@ lstm_recurrence_mma_kernel(const bf16* __restrict__ xp, const uint4* __restrict_
   const int unit = warp * 8 + g;  // accumulator rows g and g + 8
   const int seq0 = blockIdx.x * kSeq;
   const size_t ns = static_cast<size_t>(n);
-  const bool aligned = n % 8 == 0;  // rows of xp and out start 16-aligned
+  // rows of xp and out start 16-aligned (N % 8 == 0), 8-aligned (N % 4 ==
+  // 0) or 4-aligned (N even: out's bfloat16 pairs)
+  const int vec = n % 8 == 0 ? 8 : (n % 4 == 0 ? 4 : 1);  // xp copy, elements
 
   // A fragments [m-tile][k-step][register]: m-tile 0 rows (i, f), 1 (g, o)
   uint32_t wa[2][kSteps][4];
@@ -122,11 +129,17 @@ lstm_recurrence_mma_kernel(const bf16* __restrict__ xp, const uint4* __restrict_
       const int t = dir == 0 ? step : t_len - 1 - step;
       const bf16* src = xp + (static_cast<size_t>(t) * 8 * H + dir * 4 * H) * ns + seq0;
       bf16* dst = xs + (step % kStages) * kStage;
-      if (aligned) {
+      if (vec == 8) {
         for (int i = threadIdx.x; i < 4 * H * (kSeq / 8); i += 4 * H) {
           const int r = i / (kSeq / 8), j = 8 * (i % (kSeq / 8));
           const bool in = seq0 + j < n;
           aero::cp_async<16>(dst + r * kXld + j, in ? src + r * ns + j : xp, in);
+        }
+      } else if (vec == 4) {
+        for (int i = threadIdx.x; i < 4 * H * (kSeq / 4); i += 4 * H) {
+          const int r = i / (kSeq / 4), j = 4 * (i % (kSeq / 4));
+          const bool in = seq0 + j < n;
+          aero::cp_async<8>(dst + r * kXld + j, in ? src + r * ns + j : xp, in);
         }
       } else {
         for (int i = threadIdx.x; i < 4 * H * kSeq; i += 4 * H) {
@@ -188,7 +201,7 @@ lstm_recurrence_mma_kernel(const bf16* __restrict__ xp, const uint4* __restrict_
       hn[sl * kLd + unit] = hp.x;
       hn[(sl + 1) * kLd + unit] = hp.y;
       const int s = seq0 + sl;
-      if (aligned && s < n) {
+      if (n % 2 == 0 && s < n) {
         *reinterpret_cast<bf162*>(ot + s) = hp;
       } else {
         if (s < n) ot[s] = hp.x;
@@ -200,17 +213,30 @@ lstm_recurrence_mma_kernel(const bf16* __restrict__ xp, const uint4* __restrict_
   }
 }
 
-template <int H>
-cudaError_t launch_hidden(const void* xp, const void* w, const float* bias, void* out,
-                          int t_len, int n, cudaStream_t stream) {
-  auto kernel = lstm_recurrence_mma_kernel<H>;
-  const cudaError_t err = aero::allow_smem(kernel, kSmemBytes<H>);
+template <int H, int kSeq>
+cudaError_t launch_tile(const void* xp, const void* w, const float* bias, void* out,
+                        int t_len, int n, cudaStream_t stream) {
+  auto kernel = lstm_recurrence_mma_kernel<H, kSeq>;
+  const cudaError_t err = aero::allow_smem(kernel, kSmemBytes<H, kSeq>);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kSeqTile<H> - 1) / kSeqTile<H>, 2);
-  kernel<<<grid, 4 * H, kSmemBytes<H>, stream>>>(
+  const dim3 grid((n + kSeq - 1) / kSeq, 2);
+  kernel<<<grid, 4 * H, kSmemBytes<H, kSeq>, stream>>>(
       static_cast<const bf16*>(xp), static_cast<const uint4*>(w), bias,
       static_cast<bf16*>(out), t_len, n);
   return cudaGetLastError();
+}
+
+// the tiles seq_tile (ops/lstm.py) can pick: 8, 16 and 32 up to H 96, 8
+// above
+template <int H>
+cudaError_t launch_hidden(const void* xp, const void* w, const float* bias, void* out,
+                          int t_len, int n, int seq_tile, cudaStream_t stream) {
+  if (seq_tile == 8) return launch_tile<H, 8>(xp, w, bias, out, t_len, n, stream);
+  if constexpr (H <= 96) {
+    if (seq_tile == 16) return launch_tile<H, 16>(xp, w, bias, out, t_len, n, stream);
+    if (seq_tile == 32) return launch_tile<H, 32>(xp, w, bias, out, t_len, n, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -218,14 +244,14 @@ cudaError_t launch_hidden(const void* xp, const void* w, const float* bias, void
 namespace aero {
 
 // The bfloat16 recurrence (arguments of aero_lstm_recurrence, w the
-// fragments of pack_w_hh_mma).
+// fragments of pack_w_hh_mma, seq_tile the sequences of a block).
 cudaError_t lstm_recurrence_mma(const void* xp, const void* w, const float* bias,
-                                void* out, int t_len, int hidden, int n,
+                                void* out, int t_len, int hidden, int n, int seq_tile,
                                 cudaStream_t stream) {
   switch (hidden) {
 #define AERO_HIDDEN(U) \
   case 8 * U:          \
-    return launch_hidden<8 * U>(xp, w, bias, out, t_len, n, stream);
+    return launch_hidden<8 * U>(xp, w, bias, out, t_len, n, seq_tile, stream);
     AERO_HIDDEN(1) AERO_HIDDEN(2) AERO_HIDDEN(3) AERO_HIDDEN(4)
     AERO_HIDDEN(5) AERO_HIDDEN(6) AERO_HIDDEN(7) AERO_HIDDEN(8)
     AERO_HIDDEN(9) AERO_HIDDEN(10) AERO_HIDDEN(11) AERO_HIDDEN(12)

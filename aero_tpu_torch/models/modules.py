@@ -3,8 +3,8 @@
 Layouts follow PyTorch's habit: spectra ``[B, C, F, T]``, 1-D signals
 ``[N, C, T]``. Parameters are stored in float32; every layer computes in the
 dtype of its input (float32, or bfloat16 inside the U-Net) and casts its
-weights to it. Normalisation statistics, the LSTM recurrence and the
-attention softmax stay in float32. Submodule names reproduce the reference
+weights to it. Normalisation statistics, the LSTM's gates and cell and
+the attention softmax stay in float32. Submodule names reproduce the reference
 state_dict keys that ``train.from_jax.export_aero_state`` emits.
 """
 
@@ -268,50 +268,73 @@ class BLSTM(nn.Module):
     """2-layer bidirectional LSTM with hidden == input width, the reference's
     overlapped chunking (``MAX_STEPS`` frames at stride ``MAX_STEPS // 2``,
     ``modules.py:743-785``), a Linear back to ``dim`` and the skip, on
-    [N, C, T]. The recurrence runs in float32 (cuDNN's LSTM on the card);
-    the Linear runs in the input's dtype. In eval mode with
-    ``AERO_LSTM_KERNEL=1`` and a hidden width the kernel takes, each layer
-    is one input-projection matmul and ``ops.lstm.lstm_recurrence`` in the
-    input's dtype, on ``nn.LSTM``'s own parameters. Under a profiler a
-    forward is the span ``aero.blstm``.
+    [N, C, T]. Two routes, chosen by ``ops.lstm.kernel_route`` from what
+    the input shows: in eval, a bfloat16 CUDA input without autograd (and
+    any input under ``AERO_LSTM_KERNEL=1``) at a hidden width the kernel
+    takes runs each layer as one input-projection matmul and
+    ``ops.lstm.lstm_recurrence`` in the input's dtype, on ``nn.LSTM``'s
+    own parameters, the frames laid out [W, C, sequences] so that no layer
+    copies its input; everything else runs ``nn.LSTM`` in float32 (cuDNN
+    on the card) and the Linear in the input's dtype. ``kernel_forwards``
+    and ``library_forwards`` count the forwards of each route where Python
+    runs them (eager forwards and CUDA graph captures, never a replay).
+    Under a profiler a forward is the span ``aero.blstm``.
     """
 
     MAX_STEPS = 200
+    kernel_forwards = 0   # forwards through lstm_recurrence
+    library_forwards = 0  # forwards through nn.LSTM
 
     def __init__(self, dim: int):
         super().__init__()
         self.lstm = nn.LSTM(dim, dim, num_layers=2, bidirectional=True,
                             batch_first=True)
         self.linear = Linear(2 * dim, dim)
+        self._operands = None  # (key, per-layer operands): _layer_operands
 
     def forward(self, x):
         with annotate("aero.blstm"):
             n, c, t = x.shape
-            width = self.MAX_STEPS
-            framed = t > width
-            if framed:
-                stride = width // 2
-                frames = unfold_time(x, width, stride)  # [N, C, n_frames, W]
-                n_frames = frames.shape[2]
-                h = frames.permute(0, 2, 3, 1).reshape(n * n_frames, width,
-                                                       c)
-            else:
-                h = x.transpose(1, 2)                   # [N, T, C]
-            if (not self.training and lstm.enabled()
-                    and lstm.takes_kernel(self.lstm.hidden_size)):
-                h = self._recurrence(h)
-            else:
-                h = self._lstm(h.float()).to(x.dtype)
-            h = self.linear(h)
-            if framed:
-                frames = h.reshape(n, n_frames, width, c)
-                limit = stride // 2
-                out = [frames[:, 0, :-limit]]
-                out += [frames[:, k, limit:-limit]
-                        for k in range(1, n_frames - 1)]
-                out.append(frames[:, n_frames - 1, limit:])
-                h = torch.cat(out, dim=1)[:, :t]
-            return x + h.transpose(1, 2)
+            frames = self._frames(x)                    # [N, C, F, W]
+            n_frames, width = frames.shape[2:]
+            if lstm.kernel_route(x.device, x.dtype, self.training,
+                                 self.lstm.hidden_size):
+                BLSTM.kernel_forwards += 1
+                h = self._kernel_forward(frames.permute(3, 1, 2, 0).reshape(
+                    width, c, n_frames * n).contiguous(), x.dtype)
+                h = self._join_frames(h.view(width, c, n_frames, n), t,
+                                      frames_dim=2, steps_dim=0)
+                return x + h.permute(2, 1, 0)           # h: [T, C, N]
+            BLSTM.library_forwards += 1
+            h = frames.permute(0, 2, 3, 1).reshape(n * n_frames, width, c)
+            h = self.linear(self._lstm(h.float()).to(x.dtype))
+            h = self._join_frames(h.view(n, n_frames, width, c), t,
+                                  frames_dim=1, steps_dim=1)
+            return x + h.transpose(1, 2)                # h: [N, T, C]
+
+    def _frames(self, x):
+        """[N, C, T] -> [N, C, F, W]: frames of ``MAX_STEPS`` at stride
+        ``MAX_STEPS // 2`` where T > ``MAX_STEPS``, else x as one frame."""
+        width = self.MAX_STEPS
+        if x.shape[-1] > width:
+            return unfold_time(x, width, width // 2)
+        return x[:, :, None]
+
+    def _join_frames(self, h, t, frames_dim, steps_dim):
+        """The frames of h (along ``frames_dim``, each with its steps along
+        ``steps_dim`` of a frame) back in time order, as the reference
+        rejoins them (``modules.py:757-782``): a quarter of ``MAX_STEPS``
+        cut at each inner edge, the whole cropped to t steps."""
+        frames = h.unbind(frames_dim)
+        if len(frames) == 1:
+            return frames[0]
+        limit = self.MAX_STEPS // 4
+        width = frames[0].shape[steps_dim]
+        out = [frames[0].narrow(steps_dim, 0, width - limit)]
+        out += [f.narrow(steps_dim, limit, width - 2 * limit)
+                for f in frames[1:-1]]
+        out.append(frames[-1].narrow(steps_dim, limit, width - limit))
+        return torch.cat(out, steps_dim).narrow(steps_dim, 0, t)
 
     def _lstm(self, h):
         """``nn.LSTM`` on [N, T, C] float32 (one cuDNN or oneDNN operator,
@@ -327,20 +350,56 @@ class BLSTM(nn.Module):
         return flops.counted("lstm", fwd, bwd,
                              lambda h: self.lstm(h)[0], h)
 
-    def _recurrence(self, h):
-        """[N, T, C] -> [N, T, 2H] in h's dtype through the recurrence
-        kernel: per layer, x W_ih^T of both directions as one matmul into
-        [T, 8H, N] (the sequences innermost), then the recurrence, whose
-        [T, 2H, N] output is the next layer's input as it lies."""
-        seq = h.permute(1, 2, 0)                            # [T, C, N]
+    def _kernel_forward(self, seq, dtype):
+        """The recurrence route on the frames' sequences [W, C, S] in
+        ``dtype`` (S = F N, frame-major): each layer's projection writes
+        the recurrence's [W, 8H, S] input, the recurrence's [W, 2H, S]
+        output is the next layer's and the Linear's input as it lies, and
+        the Linear writes [W, C, S]."""
+        *layers, (w_lin, b_lin) = self._layer_operands(dtype)
+        for w_ih, w_hh, bias, w_packed in layers:
+            seq = lstm.lstm_recurrence(torch.matmul(w_ih, seq), w_hh, bias,
+                                       w_packed)
+        return torch.baddbmm(b_lin, w_lin.expand(seq.shape[0], -1, -1), seq)
+
+    def _layer_operands(self, dtype):
+        """Per layer (W_ih of both directions [8H, C] in ``dtype``, W_hh
+        [2, 4H, H], b_ih + b_hh [8H] float32, and for bfloat16 on CUDA
+        ``lstm.pack_w_hh_mma``'s fragments, else None), then the Linear's
+        weight [C, 2H] and bias [C, 1] in ``dtype``. Eager forwards without
+        autograd keep them on the module until a parameter changes (its
+        storage or ``_version``: an optimizer step, a ``load_state_dict``)
+        or the dtype or inference mode does. A CUDA graph capture neither
+        reads nor keeps them: it builds them from the parameters inside
+        the graph, so that a replay reads weights changed in place, and no
+        graph holds memory that a later rebuild frees."""
+        params = list(self.lstm.parameters()) + list(self.linear.parameters())
+        keeps = not (torch.is_grad_enabled() or _capturing(params[0]))
+        key = (dtype, torch.is_inference_mode_enabled()) + tuple(
+            (p.data_ptr(), p._version) for p in params)
+        if keeps and self._operands is not None and self._operands[0] == key:
+            return self._operands[1]
+        packs = dtype == torch.bfloat16 and params[0].is_cuda
+        operands = []
         for k in range(self.lstm.num_layers):
             w_ih, w_hh, b_ih, b_hh = (
                 torch.stack([getattr(self.lstm, f"{name}_l{k}{sfx}")
                              for sfx in ("", "_reverse")])
                 for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
-            xp = torch.matmul(w_ih.flatten(0, 1).to(h.dtype), seq)
-            seq = lstm.lstm_recurrence(xp, w_hh, (b_ih + b_hh).flatten())
-        return seq.permute(2, 0, 1)                         # [N, T, 2H]
+            operands.append((w_ih.flatten(0, 1).to(dtype), w_hh,
+                             (b_ih + b_hh).flatten().float(),
+                             lstm.pack_w_hh_mma(w_hh) if packs else None))
+        operands.append((self.linear.weight.to(dtype),
+                         self.linear.bias.to(dtype)[:, None]))
+        if keeps:
+            self._operands = (key, operands)
+        return operands
+
+
+def _capturing(tensor) -> bool:
+    """Whether a CUDA graph is being captured on the current stream of
+    ``tensor``'s device (never for a CPU tensor)."""
+    return tensor.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
 class LocalState(nn.Module):

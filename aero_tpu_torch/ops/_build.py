@@ -11,6 +11,7 @@ root, which git ignores.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -98,7 +99,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in (
             ("aero_local_attention_fwd", [ptr] * 6 + [i32] * 5 + [ptr]),
             ("aero_local_attention_bwd", [ptr] * 12 + [i32] * 5 + [ptr]),
-            ("aero_lstm_recurrence", [ptr] * 4 + [i32] * 4 + [ptr]),
+            ("aero_lstm_recurrence", [ptr] * 4 + [i32] * 5 + [ptr]),
             ("aero_ftb_tail", [ptr] * 7 + [i32] * 7 + [ptr]),
             ("aero_ftb_tail_mma", [ptr] * 6 + [i32] * 5 + [ptr]),
             ("aero_group_norm", [ptr] * 6 + [i32] * 9 + [f32, i32, i32, ptr])):
@@ -115,6 +116,12 @@ def raise_on(err: int, lib, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
                            f"{lib.aero_cuda_error_string(err).decode()}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def on_cpu(*tensors) -> bool:

@@ -22,7 +22,6 @@ none; it keeps the float32 copy of x out of device memory and spreads each
 
 from __future__ import annotations
 
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -92,11 +91,6 @@ def _check(x, groups, weight, bias, act, a):
         raise ValueError("group_norm: a sample of 2**31 elements or more")
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _slices(rows: int, length: int, vec: int, blocks: int):
     """(slices, elements a slice) that cut each of ``rows`` rows of
     ``length`` elements into enough slices for about ``blocks`` blocks in
@@ -117,7 +111,7 @@ def _launch(x, groups, weight, bias, eps, act, a):
     spatial = x.numel() // (n * c)
     c_out = c // 2 if act == "glu" else c
     vec = 16 // x.element_size()
-    blocks = BLOCKS_PER_SM * _sms(x.device)
+    blocks = BLOCKS_PER_SM * _build.sm_count(x.device)
     splits, chunk = _slices(n * groups, c // groups * spatial, vec, blocks)
     chunks, out_chunk = _slices(n, c_out * spatial, vec, blocks)
     part = torch.empty(n * groups * splits * 3, dtype=torch.float32,

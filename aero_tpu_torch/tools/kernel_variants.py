@@ -57,9 +57,10 @@ LSTM_PARTS = {
 }
 LSTM_ENTRY = """
 extern "C" int variant_entry(const void* xp, const void* w, const void* b,
-                             void* out, int t, int h, int n, void* st) {
+                             void* out, int t, int h, int n, int tile,
+                             void* st) {
   return aero::lstm_recurrence_mma(xp, w, static_cast<const float*>(b), out,
-                                   t, h, n, static_cast<cudaStream_t>(st));
+                                   t, h, n, tile, static_cast<cudaStream_t>(st));
 }
 """
 
@@ -167,8 +168,10 @@ def build(source: str, variants: dict, entry: str, argtypes) -> dict:
 def lstm_variants(smi):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs = build("lstm_mma.cu", {f"no_{k}": v for k, v in LSTM_PARTS.items()},
-                 LSTM_ENTRY, [ptr] * 4 + [i32] * 3 + [ptr])
+                 LSTM_ENTRY, [ptr] * 4 + [i32] * 4 + [ptr])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n, hd in (cs.LSTM_ENC2, cs.LSTM_ENC3, (64, 96)):
+        tile = lstm.seq_tile(n, hd, sms)
         xp, w, bias = cs.lstm_inputs(n, hd, torch.bfloat16, seed=220)
         wp = lstm.pack_w_hh_mma(w)
         out = torch.empty(cs.LSTM_STEPS, 2 * hd, n, dtype=torch.bfloat16,
@@ -179,13 +182,13 @@ def lstm_variants(smi):
             def call(lib=lib):
                 err = lib.variant_entry(xp.data_ptr(), wp.data_ptr(),
                                         bias.data_ptr(), out.data_ptr(),
-                                        cs.LSTM_STEPS, hd, n, stream)
+                                        cs.LSTM_STEPS, hd, n, tile, stream)
                 if err:
                     raise RuntimeError(f"variant launch failed: {err}")
             row.setdefault(name, []).append(cs.time_ms(call, (), 10))
-        print(f"lstm N={n} H={hd} bf16, ms per launch: " + ", ".join(
-            f"{k} {sum(v) / len(v):.3f}" for k, v in row.items())
-            + f" [{smi}]", flush=True)
+        print(f"lstm N={n} H={hd} tile {tile} bf16, ms per launch: "
+              + ", ".join(f"{k} {sum(v) / len(v):.3f}"
+                          for k, v in row.items()) + f" [{smi}]", flush=True)
 
 
 def attention_variants(smi):

@@ -186,10 +186,12 @@ def table(spans: dict) -> dict:
 def counters() -> tp.Dict[str, int]:
     """A snapshot of every counter of the program: {"<owner>.<counter>":
     count}, the kernel wrappers' launch and call counts (GroupNorm's on
-    aten's autograd path too), the serving path's samples and forwards,
-    and the spectral norm's power iterations."""
+    aten's autograd path too), the BLSTM's forwards by route, the serving
+    path's samples and forwards, and the spectral norm's power
+    iterations."""
     from aero_tpu_torch.eval.forward import EvalForward
     from aero_tpu_torch.models.discriminators import SNConv1d
+    from aero_tpu_torch.models.modules import BLSTM
     from aero_tpu_torch.ops.attention import local_attention, \
         periodic_attention
     from aero_tpu_torch.ops.ftb import ftb_tail
@@ -204,6 +206,7 @@ def counters() -> tp.Dict[str, int]:
         "lstm_recurrence": (lstm_recurrence, ("launches", "mma_launches")),
         "ftb_tail": (ftb_tail, ("launches", "mma_launches")),
         "group_norm": (group_norm, ("calls", "autograd_calls")),
+        "blstm": (BLSTM, ("kernel_forwards", "library_forwards")),
         "EvalForward": (EvalForward, (
             "samples", "padded_samples", "graph_captures", "graph_replays",
             "eager_forwards")),

@@ -333,7 +333,7 @@ def _fake_kernels(monkeypatch, calls):
         return tuple(d[:, :, 0] for d in grads[:3]) + (
             grads[3][:, :, 0].float(),)
 
-    def lstm_launch(xp, w_hh, bias):
+    def lstm_launch(xp, w_hh, bias, w_packed=None):
         calls.append("lstm")
         return plstm.reference_lstm_recurrence(xp, w_hh, bias)
 

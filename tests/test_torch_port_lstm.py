@@ -143,3 +143,106 @@ def test_packed_w_hh_layout():
     assert packed.shape == (2, hd, 8, 4, u)
     for d, k, r, g, uu in [(0, 3, 1, 2, 1), (1, 15, 7, 3, 0)]:
         assert packed[d, k, r, g, uu] == w[d, g * hd + r * u + uu, k]
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("device,dtype,training,hidden,switch,want", [
+    ("cuda", BF16, False, 48, "0", True), ("cuda", BF16, False, 96, "0", True),
+    ("cuda", F32, False, 48, "0", False), ("cuda", BF16, True, 48, "0", False),
+    ("cuda", BF16, False, 192, "0", False),
+    ("cpu", BF16, False, 48, "0", False),
+    ("cpu", F32, False, 48, "0", False), ("cpu", F32, False, 48, "1", True),
+    ("cuda", F32, False, 96, "1", True), ("cuda", BF16, True, 48, "1", False),
+    ("cuda", BF16, False, 192, "1", False)],
+    ids=["cuda_bf16_h48", "cuda_bf16_h96", "cuda_f32", "cuda_bf16_train",
+         "cuda_bf16_h192", "cpu_bf16", "cpu_f32", "cpu_f32_switch",
+         "cuda_f32_switch", "train_switch", "h192_switch"])
+def test_kernel_route(device, dtype, training, hidden, switch, want,
+                      monkeypatch):
+    """bf16 on CUDA in eval without autograd takes the kernel; the
+    switch decides elsewhere, never in training or past the gate."""
+    monkeypatch.setenv("AERO_LSTM_KERNEL", switch)
+    with torch.no_grad():
+        assert plstm.kernel_route(torch.device(device), dtype, training,
+                                  hidden) == want
+    assert plstm.kernel_route(torch.device(device), dtype, training,
+                              hidden) == (want and switch == "1")
+
+
+def test_blstm_operands_repack_after_an_inplace_change(monkeypatch):
+    """The recurrence's operands are kept while no parameter changes and
+    rebuilt after an in-place change (an optimizer step), so a forward
+    then equals a fresh module's; nothing is kept while autograd records."""
+    monkeypatch.setenv("AERO_LSTM_KERNEL", "1")
+    torch.manual_seed(0)
+    port = pm.BLSTM(8).eval()
+    x = torch.randn(2, 8, 230)
+    port(x)
+    assert port._operands is None
+    with torch.no_grad():
+        first = port._layer_operands(torch.float32)
+        assert port._layer_operands(torch.float32) is first
+        port.lstm.weight_hh_l1_reverse.add_(0.5)
+        second = port._layer_operands(torch.float32)
+        assert second is not first
+        assert torch.equal(second[1][1][1], port.lstm.weight_hh_l1_reverse)
+        fresh = pm.BLSTM(8).eval()
+        fresh.load_state_dict(port.state_dict())
+        assert torch.equal(port(x), fresh(x))
+
+
+def test_blstm_capture_builds_operands_from_the_parameters(monkeypatch):
+    """Under a CUDA graph capture (stubbed here) the operands come from
+    the parameters, not from those kept: the kept ones spoilt, a forward
+    under the capture still equals the eager one, and leaves them as they
+    were. So a replay reads weights changed in place (an optimizer step
+    between the Solver's valid passes), and no graph holds memory that a
+    later rebuild frees."""
+    monkeypatch.setenv("AERO_LSTM_KERNEL", "1")
+    torch.manual_seed(0)
+    port = pm.BLSTM(8).eval()
+    x = torch.randn(2, 8, 230)
+    with torch.no_grad():
+        want = port(x)
+        kept = port._operands
+        for w_ih, w_hh, bias, _ in kept[1][:-1]:  # copies, not parameters
+            for operand in (w_ih, w_hh, bias):
+                operand.zero_()
+        monkeypatch.setattr(pm, "_capturing", lambda tensor: True)
+        assert torch.equal(port(x), want)
+        assert port._operands is kept
+        port.lstm.weight_ih_l0.mul_(-1)
+        fresh = pm.BLSTM(8).eval()
+        fresh.load_state_dict(port.state_dict())
+        assert torch.equal(port(x), fresh(x))
+        assert port._operands is kept
+
+
+def test_blstm_counts_forwards_by_route(monkeypatch, calls):
+    port = pm.BLSTM(8).eval()
+    x = torch.zeros(1, 8, 40)
+    before = (pm.BLSTM.kernel_forwards, pm.BLSTM.library_forwards)
+    with torch.no_grad():
+        port(x)
+        monkeypatch.setenv("AERO_LSTM_KERNEL", "1")
+        port(x)
+        port(x)
+    assert (pm.BLSTM.kernel_forwards - before[0],
+            pm.BLSTM.library_forwards - before[1]) == (2, 1)
+    assert len(calls) == 4
+
+
+@pytest.mark.parametrize("n,hidden,tile", [
+    (3328, 48, 32), (1664, 96, 32), (8832, 48, 16), (4416, 96, 16),
+    (208, 48, 8), (104, 96, 8), (88, 48, 8), (44, 96, 8), (24, 48, 8),
+    (12, 96, 8), (1001, 128, 8)],
+    ids=["speech_b16_h48", "speech_b16_h96", "music_b16_h48",
+         "music_b16_h96", "chunk_b1_h48", "chunk_b1_h96", "file4s_b1_h48",
+         "file4s_b1_h96", "tail1s_b1_h48", "tail1s_b1_h96", "h128"])
+def test_seq_tile_picks_the_tile_measured_fastest(n, hidden, tile):
+    """At the serving shapes on an H100 (132 SMs): the fastest tile of
+    each (PERF.md section 6; 32 and 16 within 3% at speech's H 48), 8 at
+    every batch-1 shape, 8 alone past H 96."""
+    assert plstm.seq_tile(n, hidden, 132) == tile

@@ -16,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 from aero_tpu_torch.eval.forward import ChunkedInference, EvalForward
 from aero_tpu_torch.models.discriminators import SNConv1d
 from aero_tpu_torch.models.factory import build_discriminators
+from aero_tpu_torch.models.modules import BLSTM
 from aero_tpu_torch.ops.attention import local_attention, periodic_attention
 from aero_tpu_torch.ops.ftb import ftb_tail
 from aero_tpu_torch.ops.group_norm import group_norm
@@ -268,8 +269,8 @@ def test_counters_hold_every_counter():
     owners = {"local_attention": local_attention,
               "periodic_attention": periodic_attention,
               "lstm_recurrence": lstm_recurrence, "ftb_tail": ftb_tail,
-              "group_norm": group_norm, "EvalForward": EvalForward,
-              "SNConv1d": SNConv1d}
+              "group_norm": group_norm, "blstm": BLSTM,
+              "EvalForward": EvalForward, "SNConv1d": SNConv1d}
     got = profiling.counters()
     assert set(got) == {
         "local_attention.launches", "local_attention.mma_launches",
@@ -278,7 +279,8 @@ def test_counters_hold_every_counter():
         "local_attention.backward_mma_launches", "periodic_attention.calls",
         "lstm_recurrence.launches", "lstm_recurrence.mma_launches",
         "ftb_tail.launches", "ftb_tail.mma_launches", "group_norm.calls",
-        "group_norm.autograd_calls", "EvalForward.samples",
+        "group_norm.autograd_calls", "blstm.kernel_forwards",
+        "blstm.library_forwards", "EvalForward.samples",
         "EvalForward.padded_samples", "EvalForward.graph_captures",
         "EvalForward.graph_replays", "EvalForward.eager_forwards",
         "SNConv1d.power_iterations"}
